@@ -1,0 +1,233 @@
+"""Capacity-bounded sparse all-to-all over stacked shards (the paper's
+bulk request/reply).
+
+Port of ``repro/comm/exchange.py``.  Every shard routes items into a
+static ``[p, C, ...]`` send buffer (one row per destination, ``C`` =
+capacity), one all-to-all delivers them, and items beyond capacity are
+counted in ``overflow`` instead of corrupting anything.  Here the p
+shards are the leading axis of every tensor: items are ``[p, L, ...]``,
+send buffers ``[p_src, p_dst, C, ...]``, and the all-to-all is the
+transpose of ``comm/grid_alltoall.py``.
+
+Everything the reference leaves to its compiler's index semantics is
+spelled out, because the outputs must match the reference bit for bit
+even on overflowed (garbage) items:
+
+* items that are not admitted go to trash rows past the zero-filled
+  send buffer (the reference's ``mode="drop"`` scatter), so unused
+  buffer slots read 0;
+* ``reply`` clamps its gather indices into range, as the reference's
+  gathers do;
+* ``ExchangeStats`` counts one shard's ``[p, C]`` buffers (what one
+  device ships), in float32, added in the reference's order.
+
+``site`` labels a call for fault injection, which the port does not have
+yet; the argument is kept so call sites stay those of the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.comm.grid_alltoall import all_to_all_nd
+
+
+class ExchangeStats(NamedTuple):
+    """Comm accumulator of the routed exchanges, field for field the
+    reference's (see ``repro/comm/exchange.py: ExchangeStats`` for the
+    units): ``calls`` all-to-all invocations (int32), ``items`` routed
+    payload items summed over shards, ``bytes`` capacity-padded buffer
+    bytes of one shard, ``slots`` ``p * capacity`` rows per logical
+    exchange, the ghost-cache ``hits``/``misses``/``pushed`` and the
+    fault-injection ``injected`` (all float32).  0-dim tensors on the
+    solve's device.
+    """
+    calls: torch.Tensor
+    items: torch.Tensor
+    bytes: torch.Tensor
+    slots: torch.Tensor
+    hits: torch.Tensor
+    misses: torch.Tensor
+    pushed: torch.Tensor
+    injected: torch.Tensor
+
+    @staticmethod
+    def zeros(device: torch.device) -> "ExchangeStats":
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return ExchangeStats(torch.zeros((), dtype=torch.int32,
+                                         device=device), z, z, z, z, z, z, z)
+
+
+def _hops(axis_sizes: Sequence[int], schedule: str) -> int:
+    """all-to-all invocations one logical exchange costs (grid: one/axis)."""
+    sizes = tuple(axis_sizes)
+    return 1 if (schedule == "direct" or len(sizes) == 1) else len(sizes)
+
+
+def _leaves(payload) -> Tuple[torch.Tensor, ...]:
+    return tuple(payload) if isinstance(payload, (tuple, list)) \
+        else (payload,)
+
+
+def _buffer_bytes(buffers) -> int:
+    """Bytes one shard's ``[p, C, ...]`` buffers ship (the stacked
+    ``[p, p, C, ...]`` buffers divided by p)."""
+    return sum(x[0].numel() * x.element_size() for x in _leaves(buffers))
+
+
+def psum_f32(per_shard: torch.Tensor) -> torch.Tensor:
+    """Sum a float32 ``[p]`` over shards in shard order — the order of
+    the reference's all-reduce, so float sums compare bit for bit."""
+    acc = per_shard[0]
+    for s in range(1, per_shard.shape[0]):
+        acc = acc + per_shard[s]
+    return acc
+
+
+def _psum_count(mask: torch.Tensor) -> torch.Tensor:
+    """float32 count of set entries, per shard then over shards."""
+    per = mask.reshape(mask.shape[0], -1).sum(1).to(torch.float32)
+    return psum_f32(per)
+
+
+class ExchangeResult(NamedTuple):
+    """One routed exchange's receive-side view plus the bookkeeping a
+    later ``reply`` needs to route answers back."""
+    recv: object               # [p, p, C, ...] received payloads
+    recv_ok: torch.Tensor      # [p, p, C] bool — slot holds a delivered item
+    sent_ok: torch.Tensor      # [p, L] bool — item was within capacity
+    dest: torch.Tensor         # [p, L] int32 (echoed)
+    slot: torch.Tensor         # [p, L] int32 position in the send buffer
+    overflow: torch.Tensor     # [] int32 dropped items over all shards
+    stats: Optional[ExchangeStats] = None
+
+
+def _group_positions(dest: torch.Tensor, valid: torch.Tensor,
+                     p: int) -> torch.Tensor:
+    """Stable rank of each item within its destination group, per shard
+    (``[p, L]`` in and out).  Invalid items rank in a group of their own
+    (key ``p``), as in the reference."""
+    L = dest.shape[1]
+    key = torch.where(valid, dest, p)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    idx = torch.arange(L, dtype=torch.int32, device=dest.device)
+    head = torch.ones_like(sorted_key, dtype=torch.bool)
+    head[:, 1:] = sorted_key[:, 1:] != sorted_key[:, :-1]
+    first = torch.cummax(torch.where(head, idx, 0), dim=1).values
+    pos = torch.empty_like(key)
+    pos.scatter_(1, order, idx - first)
+    return pos
+
+
+def routed_exchange(payload, dest: torch.Tensor, valid: torch.Tensor,
+                    capacity: int, axis_sizes: Sequence[int],
+                    schedule: str = "grid",
+                    stats: Optional[ExchangeStats] = None,
+                    site: str = "") -> ExchangeResult:
+    """Deliver ``payload[s, i]`` from shard ``s`` to shard ``dest[s, i]``.
+
+    ``payload`` is a ``[p, L, ...]`` tensor or a tuple of them; ``dest``
+    and ``valid`` are ``[p, L]``.  Each shard's send buffer holds
+    ``capacity`` items per destination; an item is sent iff it is valid,
+    its destination is in range and its rank within the destination is
+    below capacity (``sent_ok``).  The rest are counted in ``overflow``.
+    With ``stats``, the result carries it plus this exchange's
+    contribution.
+    """
+    sizes = tuple(axis_sizes)
+    p = math.prod(sizes)
+    dev = dest.device
+    L = dest.shape[1]
+    pos = _group_positions(dest, valid, p)
+    ok = valid & (pos < capacity) & (dest >= 0) & (dest < p)
+    # predicated scatter: an item that is not ok lands in a trash row of
+    # its own past the buffer, so no two writes share a row
+    buf_rows = p * p * capacity
+    shard = torch.arange(p, dtype=torch.int64, device=dev).view(p, 1)
+    item = torch.arange(p * L, dtype=torch.int64, device=dev).view(p, L)
+    flat = torch.where(ok, (shard * p + dest.long()) * capacity + pos.long(),
+                       buf_rows + item).reshape(-1)
+
+    def scatter(x):
+        rest = tuple(x.shape[2:])
+        buf = torch.zeros((buf_rows + p * L,) + rest, dtype=x.dtype,
+                          device=dev)
+        buf.index_copy_(0, flat, x.reshape((p * L,) + rest))
+        return buf[:buf_rows].view((p, p, capacity) + rest)
+
+    leaves = _leaves(payload)
+    send = tuple(scatter(x) for x in leaves)
+    send_mask = scatter(ok)
+    recv = tuple(all_to_all_nd(b, sizes, schedule) for b in send)
+    recv_ok = all_to_all_nd(send_mask, sizes, schedule)
+    overflow = (valid & ~ok).sum(dtype=torch.int32)
+    if stats is not None:
+        h = _hops(sizes, schedule)
+        nbuf = len(leaves) + 1  # + validity mask
+        by = _buffer_bytes(send) + _buffer_bytes(send_mask)
+        stats = stats._replace(calls=stats.calls + nbuf * h,
+                               items=stats.items + _psum_count(ok),
+                               bytes=stats.bytes + by * h,
+                               slots=stats.slots + p * capacity)
+    if not isinstance(payload, (tuple, list)):
+        recv = recv[0]
+    return ExchangeResult(recv, recv_ok, ok, dest, pos, overflow, stats)
+
+
+def reply(ex: ExchangeResult, answers, axis_sizes: Sequence[int],
+          schedule: str = "grid", stats: Optional[ExchangeStats] = None):
+    """Route per-slot ``answers`` (``[p, p, C, ...]``, aligned with
+    ``ex.recv``) back to the requesting items.  Returns ``[p, L, ...]``
+    with ``ex.sent_ok`` telling which entries are meaningful; with
+    ``stats``, returns ``([p, L, ...], updated stats)`` instead."""
+    sizes = tuple(axis_sizes)
+    p = math.prod(sizes)
+    dev = ex.dest.device
+    L = ex.dest.shape[1]
+    leaves = _leaves(answers)
+    # item i used buffer position (dest[i], slot[i]); after the return
+    # exchange that slot holds the answer from shard dest[i].  Indices
+    # are clamped into range like the reference's gathers.
+    shard = torch.arange(p, dtype=torch.int64, device=dev).view(p, 1)
+    d = ex.dest.clamp(0, p - 1).long()
+    out = []
+    for a in leaves:
+        back = all_to_all_nd(a, sizes, schedule)
+        C = back.shape[2]
+        rest = tuple(back.shape[3:])
+        if C == 0:
+            out.append(torch.zeros((p, L) + rest, dtype=back.dtype,
+                                   device=dev))
+            continue
+        s = ex.slot.clamp(0, C - 1).long()
+        flat = ((shard * p + d) * C + s).reshape(-1)
+        out.append(back.reshape((p * p * C,) + rest)[flat]
+                   .view((p, L) + rest))
+    result = tuple(out) if isinstance(answers, (tuple, list)) else out[0]
+    if stats is None:
+        return result
+    h = _hops(sizes, schedule)
+    by = _buffer_bytes(answers)
+    slots = leaves[0].shape[1] * leaves[0].shape[2] if leaves else 0
+    stats = stats._replace(calls=stats.calls + len(leaves) * h,
+                           items=stats.items + _psum_count(ex.recv_ok),
+                           bytes=stats.bytes + by * h,
+                           slots=stats.slots + slots)
+    return result, stats
+
+
+def request_reply(request, dest: torch.Tensor, valid: torch.Tensor,
+                  answer_fn: Callable, capacity: int,
+                  axis_sizes: Sequence[int], schedule: str = "grid",
+                  site: str = ""):
+    """EXCHANGELABELS pattern: ship requests home, answer, ship answers
+    back.  ``answer_fn(recv, recv_ok) -> answers`` sees the receiving
+    shards' ``[p, p, C, ...]`` buffers.  Returns (answers [p, L, ...],
+    answered [p, L] bool, overflow count)."""
+    ex = routed_exchange(request, dest, valid, capacity, axis_sizes,
+                         schedule, site=site)
+    answers = answer_fn(ex.recv, ex.recv_ok)
+    out = reply(ex, answers, axis_sizes, schedule)
+    return out, ex.sent_ok, ex.overflow

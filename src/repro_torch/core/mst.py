@@ -1,0 +1,99 @@
+"""Public MSF API.
+
+Port of ``repro/core/mst.py``.  ``minimum_spanning_forest`` dispatches
+on ``engine``:
+
+  * ``"static"`` — single-device Borůvka (``core/boruvka.py``);
+  * ``"distributed_sharded"`` — the sharded-label engine over
+    ``num_shards`` stacked shards (``core/distributed_sharded.py``; the
+    reference takes a mesh here).  Engine knobs pass through ``**kw``.
+
+Ported so far: ``engine="static"`` with ``algorithm="boruvka"``, and
+``engine="distributed_sharded"`` with both algorithms on the flat
+baseline levers.  Every other engine/algorithm pair raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.boruvka import boruvka_msf
+from repro_torch.core.distributed import build_dist_graph
+from repro_torch.core.distributed_sharded import distributed_sharded_msf
+from repro_torch.core.graph import EdgeList, forest_weight
+
+
+def _sharded_dispatch(edges: EdgeList, num_shards: int, algorithm: str,
+                      **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bridge the single-array public API onto the sharded engine.
+
+    Host-side: drop padding, double + sort + 1D-partition the edges (the
+    engine's input format), run, then reduce the slot mask back to the
+    caller's edge positions via the undirected edge ids.  Repeated
+    solves of one graph should build a ``DistGraph`` once and call
+    ``distributed_sharded_msf`` directly.
+    """
+    dev = edges.u.device
+    u = edges.u.cpu().numpy()
+    v = edges.v.cpu().numpy()
+    w = edges.w.cpu().numpy()
+    idx = np.nonzero(np.isfinite(w))[0]
+    g, _ = build_dist_graph(u[idx], v[idx], w[idx], edges.n, num_shards,
+                            device=dev)
+    res = distributed_sharded_msf(g, edges.n, num_shards,
+                                  algorithm=algorithm, **kw)
+    overflow = int(res[4])
+    if overflow:  # hard error, not assert: must survive python -O
+        raise RuntimeError(
+            f"exchange overflow ({overflow} items): retry with larger "
+            "edge_capacity/label_capacity")
+    mask_slots = res[0].cpu().numpy()
+    sel = np.unique(g.eid.cpu().numpy()[mask_slots])
+    out = np.zeros(edges.m, bool)
+    out[idx[sel]] = True
+    return torch.from_numpy(out).to(dev), res[1]
+
+
+def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
+                            engine: str = "static",
+                            num_buckets: Optional[int] = None,
+                            num_shards: Optional[int] = None,
+                            **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compute an MSF on the edges' device. Returns (mask over edges,
+    total weight).
+
+    ``num_buckets`` controls filter_boruvka's weight bucketing (the
+    sharded engine's ``num_levels``, default 4).  ``num_shards`` is the
+    shard count of the distributed engines.
+    """
+    if num_buckets is not None and num_buckets < 1:
+        raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")
+    if engine == "distributed_sharded":
+        if num_shards is None:  # hard error, not assert
+            raise ValueError(f"{engine} engine needs num_shards")
+        if num_buckets is not None:
+            kw.setdefault("num_levels", num_buckets)
+        return _sharded_dispatch(edges, num_shards, algorithm, **kw)
+    if engine == "distributed":
+        raise NotImplementedError(
+            "engine='distributed' is not ported to repro_torch yet "
+            "(ROADMAP.md queue 1 item 6: replicated mesh engine)")
+    if engine == "static":
+        if algorithm == "boruvka":
+            mask, _ = boruvka_msf(edges.u, edges.v, edges.w, edges.n)
+        elif algorithm == "filter_boruvka":
+            raise NotImplementedError(
+                "engine='static', algorithm='filter_boruvka' is not ported "
+                "to repro_torch yet (ROADMAP.md queue 1 item 4: "
+                "Filter-Borůvka)")
+        else:
+            raise ValueError(algorithm)
+        return mask, forest_weight(edges, mask)
+    if engine == "dynamic":
+        raise NotImplementedError(
+            "engine='dynamic' is not ported to repro_torch yet (ROADMAP.md "
+            "queue 1 item 4: Filter-Borůvka and dispatch)")
+    raise ValueError(engine)

@@ -1,0 +1,55 @@
+"""Public wrappers around the segmented-scan machinery.
+
+Port of ``repro/kernels/segmin/ops.py``: ``run_metadata`` (contiguous
+equal-value runs, used by the sharded engine's coalescing levers) and
+the ``scatter_min_tables`` dispatcher in front of K1.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.segmin.ref import Tables, owner_scatter_min_ref
+from repro_torch.kernels.segmin.segmin import owner_scatter_min
+
+
+def run_metadata(values: torch.Tensor, perm: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Contiguous equal-value run structure of ``values`` ([L]).
+
+    Returns (head [L] bool — first slot of its run, head_idx [L] int32 —
+    index of each slot's run head, run_id [L] int32 — dense run number).
+    With ``perm`` (an [L] int32 permutation) the runs are computed over
+    the permuted view ``values[perm]`` and the metadata is in
+    permuted-slot order.  An empty array has no runs.
+    """
+    if perm is not None:
+        values = values[perm]
+    L = values.shape[0]
+    dev = values.device
+    if L == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return torch.zeros((0,), dtype=torch.bool, device=dev), z, z
+    idx = torch.arange(L, dtype=torch.int32, device=dev)
+    head = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                      values[1:] != values[:-1]])
+    head_idx = torch.cummax(torch.where(head, idx, 0), 0).values
+    run_id = torch.cumsum(head, 0, dtype=torch.int32) - 1
+    return head, head_idx, run_id
+
+
+def scatter_min_tables(idx: torch.Tensor, w: torch.Tensor,
+                       eid: torch.Tensor, pay1: torch.Tensor,
+                       pay2: torch.Tensor, ok: torch.Tensor, size: int, *,
+                       use_kernel: bool = True) -> Tables:
+    """Fused (w, eid)-lexicographic scatter-min, dispatchable.
+
+    ``use_kernel=True`` goes through the K1 wrapper (the CUDA kernel on
+    the card, its plain version on CPU tensors); ``use_kernel=False``
+    always runs the plain version — the comparator the kernel is held
+    against.  The reference's ``use_pallas`` flag, renamed.
+    """
+    if use_kernel:
+        return owner_scatter_min(idx, w, eid, pay1, pay2, ok, size)
+    return owner_scatter_min_ref(idx, w, eid, pay1, pay2, ok, size)
