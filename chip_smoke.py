@@ -21,7 +21,26 @@ Phases, each fatal on failure (exit 1):
      engine on that graph, both against the exact Kruskal edge set;
   5. time K1 at the shape the engine gave it (CUDA events) beside its
      plain version, one ``scatter_reduce_`` over a packed key as a
-     library yardstick, and its bound from device-memory bytes.
+     library yardstick, and its bound from device-memory bytes;
+  2b. (run right after phase 2) hold K2 (``relabel``) and K3
+     (``segmin_candidates``) against their plain versions on their walls
+     (the reference's test shapes, +inf tails, out-of-range and negative
+     indices, m = 0; sorted runs, ties, piecewise runs, all-dead,
+     m = 1/7, blocks from 8 to 4096 that do not divide m), exact
+     equality with -0.0 == +0.0;
+  6. the single-device Borůvka selection through K2 and K3: on GNM
+     n = 2^20 and n = 2^15 (m = 2^23, seed 0), the directed both-copy
+     list (2^24 edges, sorted by source), and in every Borůvka round
+     ``relabel_edges`` then ``min_edges_dense`` — equal to their plain
+     versions bit for bit and to ``min_edge_per_component`` on the
+     undirected list; each kernel launches once per round;
+  7. the single-device engines: ``engine="static"`` with both
+     algorithms on the GNM 2^20 graph against scipy (solve time, peak
+     memory), and on RMAT ``static`` filter_boruvka and ``dynamic`` with
+     both algorithms against the Kruskal edge set;
+  8. time K2 and K3 at phase 6's 2^24-edge shape (round-1 and round-3
+     labels, and K2's 2^15-entry table) beside their plain versions and
+     their bounds from device-memory bytes.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi`` reports them, the one before that a JSON object with one
@@ -43,9 +62,18 @@ RMAT_SCALE, RMAT_DEGREE = 16, 8
 OFF = dict(local_preprocessing=False, coalesce=False, src_only=False,
            adaptive_doubling=False, shrink_capacities=False,
            ghost_cache=False, relabel_skip=False)
+SMALL_N = 1 << 15  # K2's resident-table regime (n' <= 35 000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 K1_SOURCE = "src/repro_torch/kernels/segmin/csrc/owner_scatter_min.cu"
 K1_REPLACES = "src/repro/kernels/segmin/segmin.py:176"
+K2_SOURCE = "src/repro_torch/kernels/relabel/csrc/relabel.cu"
+K2_REPLACES = "src/repro/kernels/relabel/relabel.py:45"
+K3_SOURCE = "src/repro_torch/kernels/segmin/csrc/segmin_candidates.cu"
+K3_REPLACES = "src/repro/kernels/segmin/segmin.py:242"
+NO_LIBRARY = ("no single PyTorch call computes this function: a gather "
+              "gives the labels but not the self-loop kill in one pass "
+              "(K2), and no segmented reduction emits run-end (w, eid) "
+              "minima (K3)")
 
 
 class SmokeFailure(RuntimeError):
@@ -152,6 +180,115 @@ def k1_parity_wall(dev) -> None:
         check(equal, f"K1 differs from its plain version on {name}")
 
 
+def _relabel_case(rng, m, n, inf_tail=False):
+    """K2 inputs as in the reference's relabel test: random endpoints, a
+    pointer-doubled label forest, 10% +inf weights (or a 10% +inf
+    tail)."""
+    import numpy as np
+    u = rng.integers(0, n, m).astype(np.int32)
+    v = rng.integers(0, n, m).astype(np.int32)
+    w = rng.uniform(1, 255, m).astype(np.float32)
+    if inf_tail:
+        w[m - m // 10:] = np.inf
+    else:
+        w[rng.random(m) < 0.1] = np.inf
+    lab = np.minimum(rng.integers(0, n, n),
+                     np.arange(n)).astype(np.int32)
+    for _ in range(20):
+        lab = lab[lab]
+    return u, v, w, lab
+
+
+def k2_parity_wall(dev) -> float:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.relabel.ref import relabel_ref
+    from repro_torch.kernels.relabel.relabel import relabel
+
+    rng = np.random.default_rng(11)
+    cases = [(f"shape_{m}x{n}", _relabel_case(rng, m, n))
+             for m, n in ((16, 8), (500, 100), (2048, 35000))]
+    cases.append(("inf_tail_10pct", _relabel_case(rng, 5000, 300, True)))
+    u, v, w, lab = _relabel_case(rng, 4001, 10)
+    u[::3] = rng.integers(-25, 25, u[::3].shape)  # negative, past n'
+    v[1::3] = rng.integers(-25, 25, v[1::3].shape)
+    w[::17] = np.nan
+    w[5::17] = -np.inf
+    cases.append(("out_of_range_negative", (u, v, w, lab)))
+    cases.append(("empty", (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                            np.zeros(0, np.float32), lab)))
+    worst = 0.0
+    for name, arrays in cases:
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = relabel(*args)
+        exp = relabel_ref(*args)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, e) for g, e in zip(got, exp))
+        err = max_abs_diff(got, exp)
+        worst = max(worst, err)
+        log(f"k2 parity {name}: m={args[0].shape[0]} n'={args[3].shape[0]} "
+            f"max|diff|={err} equal={equal}")
+        check(equal, f"K2 differs from its plain version on {name}")
+    return worst
+
+
+def _sorted_runs(rng, m, n, tie_heavy=False):
+    """K3 inputs as in the reference's segmin tests: sorted seg, uniform
+    or tie-heavy weights, a permutation of eids, 80% alive."""
+    import numpy as np
+    seg = np.sort(rng.integers(0, n, m)).astype(np.int32)
+    if tie_heavy:
+        w = rng.integers(1, 4, m).astype(np.float32)
+    else:
+        w = rng.uniform(1, 255, m).astype(np.float32)
+    return (seg, w, rng.permutation(m).astype(np.int32),
+            rng.random(m) < 0.8)
+
+
+def k3_parity_wall(dev) -> float:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segmin.ops import min_edges_dense
+    from repro_torch.kernels.segmin.ref import segmin_candidates_ref
+    from repro_torch.kernels.segmin.segmin import segmin_candidates
+
+    rng = np.random.default_rng(13)
+    cases = [(f"sorted_{m}_b{b}", _sorted_runs(rng, m, max(4, m // 4)), b)
+             for m in (8, 100, 512, 1000, 2048) for b in (128, 512)]
+    cases.append(("tie_heavy", _sorted_runs(rng, 777, 50, True), 128))
+    seg = np.repeat([5, 2, 9, 2, 0], [7, 3, 11, 4, 6]).astype(np.int32)
+    cases.append(("piecewise", (seg, rng.uniform(1, 9, 31).astype(
+        np.float32), np.arange(31, dtype=np.int32), np.ones(31, bool)), 8))
+    seg, w, eid, _ = _sorted_runs(rng, 3000, 64)
+    cases.append(("all_dead", (seg, w, eid, np.zeros(3000, bool)), 512))
+    for m in (1, 7):
+        cases.append((f"m{m}", _sorted_runs(rng, m, 3), 512))
+    for b in (8, 100, 1024, 4096):
+        cases.append((f"ragged_b{b}", _sorted_runs(rng, 10007, 2500,
+                                                   b == 100), b))
+    worst = 0.0
+    for name, arrays, block in cases:
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        m = args[0].shape[0]
+        got = segmin_candidates(*args, block=block)
+        exp = segmin_candidates_ref(*args, min(block, max(m, 8)))
+        n = int(args[0].max()) + 1
+        dense = min_edges_dense(*args, n, block=block)
+        dense_plain = min_edges_dense(*args, n, use_kernel=False)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(g, e) for g, e in zip(got, exp))
+        dense_equal = all(torch.equal(g, e)
+                          for g, e in zip(dense, dense_plain))
+        err = max(max_abs_diff(got, exp), max_abs_diff(dense, dense_plain))
+        worst = max(worst, err)
+        log(f"k3 parity {name}: m={m} block={block} max|diff|={err} "
+            f"equal={equal} dense_equal={dense_equal}")
+        check(equal, f"K3 differs from its plain version on {name}")
+        check(dense_equal, f"min_edges_dense through K3 differs from the "
+              f"plain path on {name}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -237,10 +374,8 @@ def compare_engine_paths(dev, u, v, w, n, algorithm, captured=None):
     return g, kern, seconds, layout_s
 
 
-def kruskal_check(u, v, w, n, mask, what):
+def kruskal_check(kmask, mask, what):
     import numpy as np
-    from repro_torch.core import oracle
-    kmask, _ = oracle.kruskal(u, v, w, n)
     check(np.array_equal(mask.cpu().numpy(), kmask),
           f"{what}: edge set differs from Kruskal")
 
@@ -309,6 +444,154 @@ def time_k1(args, size):
                 bytes=bytes_moved)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the single-device Borůvka selection through K2 and K3
+# ---------------------------------------------------------------------------
+
+def directed_copies(ut, vt, wt):
+    """Both directions of every undirected edge, stably sorted by source,
+    with eid = the undirected edge index."""
+    import torch
+    m = ut.shape[0]
+    src = torch.cat([ut, vt])
+    order = torch.sort(src, stable=True).indices
+    return (src[order], torch.cat([vt, ut])[order],
+            torch.cat([wt, wt])[order], (order % m).to(torch.int32))
+
+
+def selection_rounds(dev, u, v, w, n, keep=(1, 3)):
+    """Borůvka rounds from the identity labels until no component
+    changes.  Before each round: K2 then K3 (``relabel_edges``, then
+    ``min_edges_dense`` on the directed both-copy list), each held bit for
+    bit to its plain path, and the dense ``(wmin, emin)`` to
+    ``min_edge_per_component`` on the undirected list with the same
+    labels (its sentinel ``m`` read as 2^30).  Returns the round count,
+    the largest difference seen, the directed list and the labels of the
+    rounds in ``keep``."""
+    import torch
+    from repro_torch.core.boruvka import boruvka_round, \
+        min_edge_per_component
+    from repro_torch.kernels.relabel.ops import relabel_edges
+    from repro_torch.kernels.segmin.ops import min_edges_dense
+    from repro_torch.kernels.segmin.ref import EID_SENTINEL
+
+    ut, vt, wt = (torch.from_numpy(x).to(dev) for x in (u, v, w))
+    m = ut.shape[0]
+    du, dv, dw, eid = directed_copies(ut, vt, wt)
+    labels = torch.arange(n, dtype=torch.int32, device=dev)
+    mst = torch.zeros(m, dtype=torch.bool, device=dev)
+    kept = {}
+    worst = 0.0
+    rounds = 0
+    changed = True
+    while changed:
+        rounds += 1
+        if rounds in keep:
+            kept[rounds] = labels.clone()
+        got = relabel_edges(du, dv, dw, labels)
+        exp = relabel_edges(du, dv, dw, labels, use_kernel=False)
+        check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+              f"round {rounds}: K2 differs from the plain relabel")
+        ru, _, wp = got
+        alive = torch.isfinite(wp)
+        dense = min_edges_dense(ru, wp, eid, alive, n)
+        plain = min_edges_dense(ru, wp, eid, alive, n, use_kernel=False)
+        check(all(torch.equal(g, e) for g, e in zip(dense, plain)),
+              f"round {rounds}: min_edges_dense through K3 differs from "
+              "the plain path")
+        wl, el = min_edge_per_component(labels[ut], labels[vt], wt, n)
+        el = torch.where(el == m, EID_SENTINEL, el)
+        check(torch.equal(dense[0], wl) and torch.equal(dense[1], el),
+              f"round {rounds}: the K2 -> K3 selection differs from "
+              "min_edge_per_component")
+        worst = max(worst, max_abs_diff(got, exp), max_abs_diff(dense, plain),
+                    max_abs_diff(dense, (wl, el)))
+        labels, mst, ch = boruvka_round(ut, vt, wt, labels, mst, n)
+        changed = bool(ch)
+    return dict(rounds=rounds, max_abs_err=worst, directed=(du, dv, dw, eid),
+                labels=kept, n=n)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the single-device engines
+# ---------------------------------------------------------------------------
+
+def time_static_engine(dev, u, v, w, n, algorithm):
+    """One warm-up, then the timed solve through the public entry point.
+    Returns (mask, weight, seconds, peak GiB above what was allocated
+    before the solve, that baseline in GiB)."""
+    import torch
+    from repro_torch.core.graph import from_numpy
+    from repro_torch.core.mst import minimum_spanning_forest
+
+    edges = from_numpy(u, v, w, n, device=dev)
+    minimum_spanning_forest(edges, engine="static", algorithm=algorithm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mask, weight = minimum_spanning_forest(edges, engine="static",
+                                           algorithm=algorithm)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    return mask, weight, seconds, peak / 2 ** 30, before / 2 ** 30
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K2 and K3 timing at phase 6's shape
+# ---------------------------------------------------------------------------
+
+def time_k2(directed, labels, reps=20):
+    import torch
+    from repro_torch.kernels.relabel.ref import relabel_ref
+    from repro_torch.kernels.relabel.relabel import relabel
+
+    du, dv, dw, _ = directed
+    got = relabel(du, dv, dw, labels)
+    exp = relabel_ref(du, dv, dw, labels)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, e) for g, e in zip(got, exp))
+    err = max_abs_diff(got, exp)
+    del got, exp
+    m, n = du.shape[0], labels.shape[0]
+    # u, v, w read and ru, rv, w' written once (24 B), the table once
+    bytes_moved = 24 * m + 4 * n
+    return dict(equal=equal, max_abs_err=err, m=m, n=n, bytes=bytes_moved,
+                ms=time_ms(lambda: relabel(du, dv, dw, labels), reps),
+                plain_ms=time_ms(lambda: relabel_ref(du, dv, dw, labels), 3),
+                bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
+
+
+def time_k3(directed, labels, block=512, reps=20):
+    import torch
+    from repro_torch.kernels.relabel.ops import relabel_edges
+    from repro_torch.kernels.segmin.ref import segmin_candidates_ref
+    from repro_torch.kernels.segmin.segmin import segmin_candidates
+
+    du, dv, dw, eid = directed
+    seg, _, wp = relabel_edges(du, dv, dw, labels, use_kernel=False)
+    alive = torch.isfinite(wp)
+    args = (seg, wp, eid, alive)
+    got = segmin_candidates(*args, block=block)
+    exp = segmin_candidates_ref(*args, block)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, e) for g, e in zip(got, exp))
+    err = max_abs_diff(got, exp)
+    del got, exp
+    m = seg.shape[0]
+    # seg, w, eid (12 B) and alive (1 B) read, cand_w, cand_eid written
+    bytes_moved = 21 * m
+    return dict(equal=equal, max_abs_err=err, m=m, bytes=bytes_moved,
+                alive=int(alive.sum()),
+                ms=time_ms(lambda: segmin_candidates(*args, block=block),
+                           reps),
+                plain_ms=time_ms(lambda: segmin_candidates_ref(*args, block),
+                                 3),
+                bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
+
+
+
 def main() -> int:
     try:
         import torch
@@ -330,9 +613,19 @@ def main() -> int:
     from repro_torch.core.graph import from_numpy
     from repro_torch.core.mst import minimum_spanning_forest
     from repro_torch.data import generators
+    from repro_torch.core import oracle
     from repro_torch.kernels import _build
-    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    from repro_torch.kernels.relabel.relabel import relabel
+    from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
+                                                   segmin_candidates)
 
+    counted = (owner_scatter_min, relabel, segmin_candidates)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+
+    start = time.perf_counter()
     dev = torch.device("cuda")
     smi = gpu_line()
     log(f"gpu: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -349,6 +642,9 @@ def main() -> int:
 
     # phase 2: parity wall
     k1_parity_wall(dev)
+    # phase 2b: K2 and K3 walls
+    k2_err = k2_parity_wall(dev)
+    k3_err = k3_parity_wall(dev)
 
     # phase 3: the main path on GNM
     t0 = time.perf_counter()
@@ -360,6 +656,7 @@ def main() -> int:
     launches = {}
     for algorithm in ("boruvka", "filter_boruvka"):
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         mask, weight, secs, k1 = run_main_path(dev, u, v, w, n, algorithm)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         count = int(mask.sum())
@@ -391,12 +688,13 @@ def main() -> int:
     ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
                                      * RMAT_DEGREE // 2, seed=SEED)
     edges = from_numpy(ru, rv, rw, rn, device=dev)
+    rmat_kmask, _ = oracle.kruskal(ru, rv, rw, rn)
     mask, _ = minimum_spanning_forest(
         edges, engine="distributed_sharded", num_shards=NUM_SHARDS,
         algorithm="boruvka", pallas_minedges=True, **OFF)
-    kruskal_check(ru, rv, rw, rn, mask, "rmat distributed_sharded")
+    kruskal_check(rmat_kmask, mask, "rmat distributed_sharded")
     mask, _ = minimum_spanning_forest(edges, engine="static")
-    kruskal_check(ru, rv, rw, rn, mask, "rmat static")
+    kruskal_check(rmat_kmask, mask, "rmat static")
     log(f"rmat scale {RMAT_SCALE} (n={rn}, m={len(ru)}): sharded and "
         "static engines equal the Kruskal edge set")
 
@@ -414,12 +712,120 @@ def main() -> int:
         f"{k1['bound_ms']:.4f} ms ({k1['bytes']} B at 3.35 TB/s); "
         f"launches per solve: {json.dumps(launches)}")
 
+    # phase 6: the single-device selection through K2 and K3
+    del edges, mask, args, captured  # K1's inputs alone hold 5.3 GiB
+    selections = {}
+    for gn in (GNM_N, SMALL_N):
+        t0 = time.perf_counter()
+        gu, gv, gw, _ = (u, v, w, n) if gn == GNM_N else generators.gnm(
+            gn, GNM_M, seed=SEED)
+        gen_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        sel = selection_rounds(dev, gu, gv, gw, gn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in counted}
+        log(f"selection gnm n={gn} m={len(gu)} ({2 * len(gu)} directed, "
+            f"generated in {gen_s:.1f} s): {sel['rounds']} rounds in "
+            f"{secs:.3f} s wall (with the plain comparisons); K2 and K3 "
+            f"equal their plain paths and min_edge_per_component in every "
+            f"round, max|diff|={sel['max_abs_err']}; launches "
+            f"{json.dumps(counts)}")
+        for fn in (relabel, segmin_candidates):
+            check(fn.launches == sel["rounds"],
+                  f"n={gn}: {fn.__name__} launched {fn.launches} times in "
+                  f"{sel['rounds']} rounds, not once per round")
+        check(counts["owner_scatter_min"] == 0,
+              "the single-device selection launched K1")
+        sel["launches"] = counts
+        selections[gn] = sel
+    del gu, gv, gw
+
+    # phase 7: the single-device engines
+    engine_s = {}
+    for algorithm in ("boruvka", "filter_boruvka"):
+        mask, weight, secs, peak, held = time_static_engine(dev, u, v, w, n,
+                                                            algorithm)
+        count = int(mask.sum())
+        rel = abs(float(weight) - ref_weight) / ref_weight
+        log(f"static engine gnm {algorithm}: solve {secs:.3f} s wall "
+            f"(public API) after one warm-up; edges {count} (scipy "
+            f"{ref_count}); weight {float(weight):.1f} (scipy "
+            f"{ref_weight:.1f}, rel {rel:.2e}); peak device memory "
+            f"{peak:.3f} GiB above the {held:.3f} GiB held before the "
+            "solve (the edges and phase 6's directed lists)")
+        check(count == ref_count, f"static {algorithm}: {count} MSF edges, "
+              f"scipy {ref_count}")
+        check(rel < 1e-3, f"static {algorithm}: weight off by {rel:.2e} "
+              "relative")
+        engine_s[algorithm] = secs
+        del mask
+    edges = from_numpy(ru, rv, rw, rn, device=dev)
+    for engine, algorithm in (("static", "filter_boruvka"),
+                              ("dynamic", "boruvka"),
+                              ("dynamic", "filter_boruvka")):
+        t0 = time.perf_counter()
+        mask, _ = minimum_spanning_forest(edges, engine=engine,
+                                          algorithm=algorithm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        kruskal_check(rmat_kmask, mask, f"rmat {engine} {algorithm}")
+        log(f"rmat {engine} {algorithm}: {secs:.3f} s wall (first call), "
+            "equals the Kruskal edge set")
+    del edges, mask
+
+    # phase 8: K2 and K3 per launch at phase 6's shape
+    big = selections[GNM_N]
+    k2 = {(gn, r): time_k2(selections[gn]["directed"], lab)
+          for gn in (GNM_N, SMALL_N)
+          for r, lab in sorted(selections[gn]["labels"].items())}
+    k3 = {(GNM_N, r): time_k3(big["directed"], lab)
+          for r, lab in sorted(big["labels"].items())}
+    for name, res in list(k2.items()) + list(k3.items()):
+        check(res["equal"], f"n={name[0]} round {name[1]}: kernel differs "
+              "from its plain version at phase 6's shape")
+    for (gn, r), res in k2.items():
+        log(f"k2 timing gnm n={gn} round {r}: m={res['m']} n'={res['n']} "
+            f"{res['ms']:.4f} ms/launch, plain {res['plain_ms']:.4f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bytes']} B at "
+            f"3.35 TB/s), launches per selection path "
+            f"{selections[gn]['launches']['relabel']}, "
+            f"max|diff|={res['max_abs_err']}")
+    for (gn, r), res in k3.items():
+        log(f"k3 timing gnm n={gn} round {r}: m={res['m']} alive="
+            f"{res['alive']} block=512 {res['ms']:.4f} ms/launch, plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bytes']} B at 3.35 TB/s), launches per selection "
+            f"path {selections[gn]['launches']['segmin_candidates']}, "
+            f"max|diff|={res['max_abs_err']}")
+    log(f"library: null for K2 and K3: {NO_LIBRARY}")
+    k2_main = k2[(GNM_N, 1)]
+    k3_main = k3[(GNM_N, 1)]
+
     kernels = [dict(name="owner_scatter_min", route="cuda",
                     source=K1_SOURCE, replaces=K1_REPLACES,
                     launches=launches["boruvka"],
                     max_abs_err=k1["max_abs_err"], ms=k1["ms"],
                     plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-                    bound_by="bytes", library_ms=k1["library_ms"])]
+                    bound_by="bytes", library_ms=k1["library_ms"]),
+               dict(name="relabel", route="cuda", source=K2_SOURCE,
+                    replaces=K2_REPLACES,
+                    launches=big["launches"]["relabel"],
+                    max_abs_err=max([k2_err, big["max_abs_err"]]
+                                    + [r["max_abs_err"] for r in k2.values()]),
+                    ms=k2_main["ms"], plain_ms=k2_main["plain_ms"],
+                    bound_ms=k2_main["bound_ms"], bound_by="bytes",
+                    library_ms=None),
+               dict(name="segmin_candidates", route="cuda", source=K3_SOURCE,
+                    replaces=K3_REPLACES,
+                    launches=big["launches"]["segmin_candidates"],
+                    max_abs_err=max([k3_err, big["max_abs_err"]]
+                                    + [r["max_abs_err"] for r in k3.values()]),
+                    ms=k3_main["ms"], plain_ms=k3_main["plain_ms"],
+                    bound_ms=k3_main["bound_ms"], bound_by="bytes",
+                    library_ms=None)]
+    log(f"total: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -99,6 +99,21 @@ def boruvka_round(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return labels, mst_i.bool(), has.any()
 
 
+def rounds_until_stable(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                        labels: torch.Tensor, mst: torch.Tensor, n: int,
+                        max_rounds: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Borůvka rounds until no component changes or ``max_rounds`` (the
+    reference's ``while_loop``). Returns (labels', mst')."""
+    changed = True
+    rounds = 0
+    while changed and rounds < max_rounds:
+        labels, mst, ch = boruvka_round(u, v, w, labels, mst, n)
+        changed = bool(ch)
+        rounds += 1
+    return labels, mst
+
+
 def boruvka_msf(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, n: int,
                 max_rounds: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,10 +133,5 @@ def boruvka_msf(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, n: int,
         # each round at least halves #non-isolated components; a run over
         # k edges touches <= 2k components.
         max_rounds = max(1, math.ceil(math.log2(max(min(n, 2 * m), 2))) + 1)
-    rounds = 0
-    changed = True
-    while changed and rounds < max_rounds:
-        labels, mst, ch = boruvka_round(u, v, w, labels, mst, n)
-        changed = bool(ch)
-        rounds += 1
+    labels, mst = rounds_until_stable(u, v, w, labels, mst, n, max_rounds)
     return mst, labels

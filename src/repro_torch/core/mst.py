@@ -3,15 +3,17 @@
 Port of ``repro/core/mst.py``.  ``minimum_spanning_forest`` dispatches
 on ``engine``:
 
-  * ``"static"`` — single-device Borůvka (``core/boruvka.py``);
+  * ``"static"`` — single-device Borůvka (``core/boruvka.py``) or
+    Filter-Borůvka with fixed weight buckets (``core/filter_boruvka.py``);
+  * ``"dynamic"`` — the host-orchestrated recursion with compaction and
+    a Borůvka base case on the edges' device (``core/filter_boruvka.py``;
+    ``**kw`` goes to ``filter_boruvka_dynamic``);
   * ``"distributed_sharded"`` — the sharded-label engine over
     ``num_shards`` stacked shards (``core/distributed_sharded.py``; the
     reference takes a mesh here).  Engine knobs pass through ``**kw``.
 
-Ported so far: ``engine="static"`` with ``algorithm="boruvka"``, and
-``engine="distributed_sharded"`` with both algorithms on the flat
-baseline levers.  Every other engine/algorithm pair raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``engine="distributed"`` (the replicated mesh engine) is not ported yet
+and raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ import torch
 from repro_torch.core.boruvka import boruvka_msf
 from repro_torch.core.distributed import build_dist_graph
 from repro_torch.core.distributed_sharded import distributed_sharded_msf
+from repro_torch.core.filter_boruvka import (boruvka_dynamic,
+                                             filter_boruvka_dynamic,
+                                             filter_boruvka_msf)
 from repro_torch.core.graph import EdgeList, forest_weight
 
 
@@ -65,9 +70,10 @@ def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
     """Compute an MSF on the edges' device. Returns (mask over edges,
     total weight).
 
-    ``num_buckets`` controls filter_boruvka's weight bucketing (the
-    sharded engine's ``num_levels``, default 4).  ``num_shards`` is the
-    shard count of the distributed engines.
+    ``num_buckets`` controls filter_boruvka's weight bucketing; each
+    engine keeps its own default when it is not given (static: 8, the
+    sharded engine's ``num_levels``: 4).  ``num_shards`` is the shard
+    count of the distributed engines.
     """
     if num_buckets is not None and num_buckets < 1:
         raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")
@@ -85,15 +91,24 @@ def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
         if algorithm == "boruvka":
             mask, _ = boruvka_msf(edges.u, edges.v, edges.w, edges.n)
         elif algorithm == "filter_boruvka":
-            raise NotImplementedError(
-                "engine='static', algorithm='filter_boruvka' is not ported "
-                "to repro_torch yet (ROADMAP.md queue 1 item 4: "
-                "Filter-Borůvka)")
+            mask, _ = filter_boruvka_msf(
+                edges.u, edges.v, edges.w, edges.n,
+                num_buckets=8 if num_buckets is None else num_buckets)
         else:
             raise ValueError(algorithm)
         return mask, forest_weight(edges, mask)
     if engine == "dynamic":
-        raise NotImplementedError(
-            "engine='dynamic' is not ported to repro_torch yet (ROADMAP.md "
-            "queue 1 item 4: Filter-Borůvka and dispatch)")
+        dev = edges.u.device
+        u = edges.u.cpu().numpy()
+        v = edges.v.cpu().numpy()
+        w = edges.w.cpu().numpy()
+        if algorithm == "boruvka":
+            mask, wt = boruvka_dynamic(u, v, w, edges.n, device=dev)
+        elif algorithm == "filter_boruvka":
+            mask, wt = filter_boruvka_dynamic(u, v, w, edges.n, device=dev,
+                                              **kw)
+        else:
+            raise ValueError(algorithm)
+        return (torch.from_numpy(mask).to(dev),
+                torch.tensor(wt, dtype=torch.float32, device=dev))
     raise ValueError(engine)

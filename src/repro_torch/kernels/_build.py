@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each kernel is one ``.cu`` file with a plain C entry point, compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library and loaded with
@@ -7,6 +7,9 @@ named by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  Nothing is built at import
 time: ``load`` builds on first use, ``build_all`` builds every kernel at
 once (one ``nvcc`` per source, all started together).
+``check_tensors`` and ``launch`` are what every wrapper shares: the
+checks of device, dtype, shape and contiguity, and the launch on the
+current stream that raises on a non-zero ``cudaError_t``.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -25,6 +30,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 # kernel name -> CUDA source
 SOURCES: Dict[str, Path] = {
     "owner_scatter_min": _PKG / "segmin" / "csrc" / "owner_scatter_min.cu",
+    "segmin_candidates": _PKG / "segmin" / "csrc" / "segmin_candidates.cu",
+    "relabel": _PKG / "relabel" / "csrc" / "relabel.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -103,3 +110,39 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def check_tensors(fn: str, want: Dict[str, Tuple[torch.Tensor, torch.dtype]],
+                  shape: Optional[torch.Size] = None) -> None:
+    """Raise unless every ``name: (tensor, dtype)`` has that dtype (a
+    ``TypeError``), is contiguous and lies on the first one's device,
+    and, where ``shape`` is given, has that shape (``ValueError``)."""
+    device = next(iter(want.values()))[0].device
+    for name, (t, dtype) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        if shape is not None and t.shape != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def launch(name: str, argtypes: Sequence, device: torch.device,
+           *args) -> None:
+    """Call kernel ``name``'s C entry point ``<name>_launch`` with
+    ``args`` (of ``argtypes``) and ``device``'s current stream; raise on
+    the non-zero ``cudaError_t`` it returns (a refused launch never runs,
+    and a later synchronise would not report it)."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t "
+                           f"{err}")

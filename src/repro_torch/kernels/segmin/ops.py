@@ -1,8 +1,9 @@
 """Public wrappers around the segmented-scan machinery.
 
 Port of ``repro/kernels/segmin/ops.py``: ``run_metadata`` (contiguous
-equal-value runs, used by the sharded engine's coalescing levers) and
-the ``scatter_min_tables`` dispatcher in front of K1.
+equal-value runs, used by the sharded engine's coalescing levers), the
+dense per-vertex min-edge entry point ``min_edges_dense`` (K3, then
+phase 2) and the ``scatter_min_tables`` dispatcher in front of K1.
 """
 from __future__ import annotations
 
@@ -10,8 +11,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.segmin.ref import Tables, owner_scatter_min_ref
-from repro_torch.kernels.segmin.segmin import owner_scatter_min
+from repro_torch.kernels.segmin.ref import (Tables, dense_min_from_candidates,
+                                            owner_scatter_min_ref,
+                                            segmin_candidates_ref)
+from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
+                                               segmin_candidates)
 
 
 def run_metadata(values: torch.Tensor, perm: Optional[torch.Tensor] = None
@@ -37,6 +41,26 @@ def run_metadata(values: torch.Tensor, perm: Optional[torch.Tensor] = None
     head_idx = torch.cummax(torch.where(head, idx, 0), 0).values
     run_id = torch.cumsum(head, 0, dtype=torch.int32) - 1
     return head, head_idx, run_id
+
+
+def min_edges_dense(seg: torch.Tensor, w: torch.Tensor, eid: torch.Tensor,
+                    alive: torch.Tensor, n: int, *, block: int = 512,
+                    use_kernel: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vertex (min weight, argmin eid) over contiguous-run edges.
+
+    Two-phase: run-end candidates, then the scatter-min of phase 2 into
+    dense ``(wmin f32 [n], emin i32 [n])``.  ``use_kernel=True`` takes
+    the candidates from the K3 wrapper (the CUDA kernel on the card, its
+    plain version on CPU tensors, in blocks of ``block``);
+    ``use_kernel=False`` from the array-wide plain version.  The dense
+    result is the same either way.
+    """
+    if use_kernel:
+        cw, ce = segmin_candidates(seg, w, eid, alive, block=block)
+    else:
+        cw, ce = segmin_candidates_ref(seg, w, eid, alive)
+    return dense_min_from_candidates(seg, cw, ce, n)
 
 
 def scatter_min_tables(idx: torch.Tensor, w: torch.Tensor,

@@ -1,58 +1,41 @@
-"""K1 wrapper: the fused MINEDGES scatter-min, as a CUDA kernel.
+"""K1 and K3 wrappers: the MINEDGES kernels, in CUDA.
 
-Port of ``repro/kernels/segmin/segmin.py: owner_scatter_min`` (Pallas
-body ``_scatter_min_kernel``).  On a CUDA tensor the wrapper launches
-the hand-written kernel of ``csrc/owner_scatter_min.cu`` (built on first
-use by ``kernels/_build.py``); on a CPU tensor it runs the plain PyTorch
-version of ``ref.py``.  There is no fallback between the two: a CUDA
-input that the kernel does not take raises.
+Ports of ``repro/kernels/segmin/segmin.py``:
 
-``owner_scatter_min.launches`` counts kernel launches (never the plain
-version's calls), so a run can show that it went through the kernel.
+* ``owner_scatter_min`` (K1, Pallas body ``_scatter_min_kernel``) — the
+  fused scatter-min, ``csrc/owner_scatter_min.cu``;
+* ``segmin_candidates`` (K3, Pallas body ``_segmin_kernel``) — the
+  block-segmented run-end min, ``csrc/segmin_candidates.cu``.
+
+On a CUDA tensor a wrapper launches its hand-written kernel (built on
+first use by ``kernels/_build.py``); on a CPU tensor it runs the plain
+PyTorch version of ``ref.py``.  There is no fallback between the two: a
+CUDA input that the kernel does not take raises.
+
+Each wrapper's ``launches`` counts its kernel's launches (never the
+plain version's calls), so a run can show that it went through the
+kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.segmin.ref import (EID_SENTINEL, Tables,
                                             default_tables,
-                                            owner_scatter_min_ref)
+                                            owner_scatter_min_ref,
+                                            segmin_candidates_ref)
 
-__all__ = ["EID_SENTINEL", "owner_scatter_min"]
+__all__ = ["EID_SENTINEL", "owner_scatter_min", "segmin_candidates"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
-
-
-def _launcher():
-    fn = _build.load("owner_scatter_min").owner_scatter_min_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 11 + [_I64, _I64, _I64, _P]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(idx, w, eid, pay1, pay2, ok):
-    want = {"idx": (idx, torch.int32), "w": (w, torch.float32),
-            "eid": (eid, torch.int32), "pay1": (pay1, torch.int32),
-            "pay2": (pay2, torch.int32), "ok": (ok, torch.bool)}
-    for name, (t, dtype) in want.items():
-        if t.dtype != dtype:
-            raise TypeError(f"owner_scatter_min: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if t.shape != idx.shape:
-            raise ValueError(f"owner_scatter_min: {name} has shape "
-                             f"{tuple(t.shape)}, idx {tuple(idx.shape)}")
-        if t.device != idx.device:
-            raise ValueError(f"owner_scatter_min: {name} is on {t.device}, "
-                             f"idx on {idx.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"owner_scatter_min: {name} must be "
-                             "contiguous")
+_K1_ARGS = [_P] * 11 + [_I64] * 3
+_K3_ARGS = [_P] * 6 + [_I64] * 2
 
 
 def owner_scatter_min(idx: torch.Tensor, w: torch.Tensor,
@@ -75,7 +58,10 @@ def owner_scatter_min(idx: torch.Tensor, w: torch.Tensor,
     if idx.device.type != "cuda":
         raise ValueError(f"owner_scatter_min: no kernel for device "
                          f"{idx.device}")
-    _check(idx, w, eid, pay1, pay2, ok)
+    _build.check_tensors("owner_scatter_min", {
+        "idx": (idx, torch.int32), "w": (w, torch.float32),
+        "eid": (eid, torch.int32), "pay1": (pay1, torch.int32),
+        "pay2": (pay2, torch.int32), "ok": (ok, torch.bool)}, idx.shape)
     lead = tuple(idx.shape[:-1])
     L = idx.shape[-1]
     rows = math.prod(lead)
@@ -87,18 +73,63 @@ def owner_scatter_min(idx: torch.Tensor, w: torch.Tensor,
     p1 = torch.empty(shape, dtype=torch.int32, device=idx.device)
     p2 = torch.empty(shape, dtype=torch.int32, device=idx.device)
     keys = torch.empty(rows * size, dtype=torch.int64, device=idx.device)
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(idx.data_ptr(), w.data_ptr(), eid.data_ptr(),
-                          pay1.data_ptr(), pay2.data_ptr(), ok.data_ptr(),
-                          keys.data_ptr(), wmin.data_ptr(), emin.data_ptr(),
-                          p1.data_ptr(), p2.data_ptr(), rows, L, size,
-                          stream)
-    if err != 0:
-        raise RuntimeError(f"owner_scatter_min: kernel launch failed with "
-                           f"cudaError_t {err}")
+    _build.launch("owner_scatter_min", _K1_ARGS, idx.device,
+                  idx.data_ptr(), w.data_ptr(), eid.data_ptr(),
+                  pay1.data_ptr(), pay2.data_ptr(), ok.data_ptr(),
+                  keys.data_ptr(), wmin.data_ptr(), emin.data_ptr(),
+                  p1.data_ptr(), p2.data_ptr(), rows, L, size)
     owner_scatter_min.launches += 1
     return wmin, emin, p1, p2
 
 
 owner_scatter_min.launches = 0
+
+
+def segmin_candidates(seg: torch.Tensor, w: torch.Tensor, eid: torch.Tensor,
+                      alive: torch.Tensor, *, block: int = 512
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-segmented run-end ``(w, eid)``-min candidates (phase 1).
+
+    ``seg``/``eid`` int32, ``w`` f32 or bf16 (widened to f32, as the
+    reference's kernel does), ``alive`` bool, all ``[M]``.  The array is
+    cut into blocks of ``min(block, max(M, 8))`` elements; within a
+    block, each contiguous run of equal ``seg`` gives its ``(min w, min
+    eid among the w-ties)`` at its last element and ``(inf,
+    EID_SENTINEL)`` everywhere else, so a run that a block boundary cuts
+    gives one candidate per piece.  Returns ``(cand_w f32 [M], cand_eid
+    i32 [M])``: ``ref.segmin_candidates_ref(..., block)``.
+
+    Unlike the reference's kernel, a run is contiguous: where ``seg`` is
+    not sorted, the reference's Hillis–Steele guard can also fold in an
+    earlier run of the same value in the block.  ``min_edges_dense``
+    gives the same dense result either way.
+    """
+    if block < 1:
+        raise ValueError(f"segmin_candidates: block must be >= 1, got "
+                         f"{block}")
+    m = seg.shape[0]
+    block = min(block, max(m, 8))
+    if seg.device.type == "cpu":
+        return segmin_candidates_ref(seg, w, eid, alive, block)
+    if seg.device.type != "cuda":
+        raise ValueError(f"segmin_candidates: no kernel for device "
+                         f"{seg.device}")
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    _build.check_tensors("segmin_candidates", {
+        "seg": (seg, torch.int32), "w": (w, torch.float32),
+        "eid": (eid, torch.int32), "alive": (alive, torch.bool)},
+        torch.Size([m]))
+    cand_w = torch.empty(m, dtype=torch.float32, device=seg.device)
+    cand_e = torch.empty(m, dtype=torch.int32, device=seg.device)
+    if m == 0:
+        return cand_w, cand_e
+    _build.launch("segmin_candidates", _K3_ARGS, seg.device,
+                  seg.data_ptr(), w.data_ptr(), eid.data_ptr(),
+                  alive.data_ptr(), cand_w.data_ptr(), cand_e.data_ptr(),
+                  m, block)
+    segmin_candidates.launches += 1
+    return cand_w, cand_e
+
+
+segmin_candidates.launches = 0

@@ -263,9 +263,6 @@ def test_unported_levers_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         distributed_sharded_msf(g, n, P, ckpt_every=2, **OFF)
     edges = from_numpy(u, v, w, n, device=CPU)
-    for engine, algorithm in (("static", "filter_boruvka"),
-                              ("dynamic", "boruvka"),
-                              ("distributed", "boruvka")):
-        with pytest.raises(NotImplementedError):
-            minimum_spanning_forest(edges, engine=engine,
-                                    algorithm=algorithm, num_shards=P)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        minimum_spanning_forest(edges, engine="distributed",
+                                algorithm="boruvka", num_shards=P)
