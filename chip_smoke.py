@@ -9,7 +9,12 @@ Phases, each fatal on failure (exit 1):
      ``nvcc`` per source, all at once) and print the build time;
   2. hold each kernel against its plain PyTorch version on the card: the
      wall of edge cases (tie storms, +inf tails, all-dead, L = 0/1,
-     size 0, non-dividing lengths, stacked shards), exact equality;
+     size 0, non-dividing lengths, stacked shards; for K1 also rows of
+     L = 15, 17 and 4097, ok prefixes that end mid-group, all-dead
+     groups beside all-ok ones, a 2^20-lane hot-slot storm that
+     overflows the candidate list, keys decreasing in lane order and
+     inputs sliced one element in, each with pay1 aliased to pay2 and
+     not), exact equality;
   3. drive the main path: ``minimum_spanning_forest(engine=
      "distributed_sharded", num_shards=8, pallas_minedges=True)`` with
      every other lever off, on GNM n = 2^20, m = 2^23 (seed 0), for both
@@ -19,15 +24,18 @@ Phases, each fatal on failure (exit 1):
      within 1e-3 relative with n - #components edges;
   4. the same call on RMAT (scale 16, average degree 8) and the static
      engine on that graph, both against the exact Kruskal edge set;
-  5. time K1 at the shape the engine gave it (CUDA events) beside its
-     plain version, one ``scatter_reduce_`` over a packed key as a
-     library yardstick, and its bound from device-memory bytes;
+  5. time K1 at the shape the engine gave it (CUDA events; pay1 and
+     pay2 one buffer, as the engine passes them) beside its plain
+     version, one ``scatter_reduce_`` over a packed key as a library
+     yardstick, and its bound from device-memory bytes; split its time
+     among its launches with ``torch.profiler``;
   2b. (run right after phase 2) hold K2 (``relabel``) and K3
      (``segmin_candidates``) against their plain versions on their walls
      (the reference's test shapes, +inf tails, out-of-range and negative
      indices, m = 0; sorted runs, ties, piecewise runs, all-dead,
-     m = 1/7, blocks from 8 to 4096 that do not divide m), exact
-     equality with -0.0 == +0.0;
+     m = 1/7, blocks from 3 to 4096 that do not divide m, runs across
+     thread chunks, warps and tiles, inputs sliced one element in),
+     exact equality with -0.0 == +0.0;
   6. the single-device Borůvka selection through K2 and K3: on GNM
      n = 2^20 and n = 2^15 (m = 2^23, seed 0), the directed both-copy
      list (2^24 edges, sorted by source), and in every Borůvka round
@@ -40,7 +48,8 @@ Phases, each fatal on failure (exit 1):
      both algorithms against the Kruskal edge set;
   8. time K2 and K3 at phase 6's 2^24-edge shape (round-1 and round-3
      labels, and K2's 2^15-entry table) beside their plain versions and
-     their bounds from device-memory bytes.
+     their bounds from device-memory bytes, and K3 beside one
+     ``scatter_reduce_`` of a packed key into a per-run table.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi`` reports them, the one before that a JSON object with one
@@ -70,10 +79,8 @@ K2_SOURCE = "src/repro_torch/kernels/relabel/csrc/relabel.cu"
 K2_REPLACES = "src/repro/kernels/relabel/relabel.py:45"
 K3_SOURCE = "src/repro_torch/kernels/segmin/csrc/segmin_candidates.cu"
 K3_REPLACES = "src/repro/kernels/segmin/segmin.py:242"
-NO_LIBRARY = ("no single PyTorch call computes this function: a gather "
-              "gives the labels but not the self-loop kill in one pass "
-              "(K2), and no segmented reduction emits run-end (w, eid) "
-              "minima (K3)")
+NO_LIBRARY = ("no single PyTorch call computes K2: a gather gives the "
+              "labels but not the self-loop kill in one pass")
 
 
 class SmokeFailure(RuntimeError):
@@ -133,11 +140,23 @@ def max_abs_diff(got, exp) -> float:
     return worst
 
 
+def _prefix_ok(rng, rows, L, seg_len, prefixes):
+    """K1 inputs laid out as the engine's exchange buffers: each row is
+    segments of ``seg_len`` lanes whose ok lanes are a prefix of the
+    segment (lengths drawn from ``prefixes``); idx of dead lanes is 0."""
+    import numpy as np
+    idx, w, eid, pay1, pay2, _ = _candidates(rng, L, 97, True, False,
+                                             rows=rows)
+    lane = np.arange(L) % seg_len
+    lens = rng.choice(prefixes, (rows, L // seg_len + 1))
+    ok = lane[None, :] < np.repeat(lens, seg_len, axis=1)[:, :L]
+    idx[~ok] = 0
+    return idx, w, eid, pay1, pay2, ok
+
+
 def k1_parity_wall(dev) -> None:
     import numpy as np
     import torch
-    from repro_torch.kernels.segmin.ref import owner_scatter_min_ref
-    from repro_torch.kernels.segmin.segmin import owner_scatter_min
 
     rng = np.random.default_rng(7)
     cases = []
@@ -168,16 +187,75 @@ def k1_parity_wall(dev) -> None:
                    eq, rng.integers(0, 100, 20000).astype(np.int32),
                    rng.integers(0, 100, 20000).astype(np.int32),
                    np.ones(20000, bool)), 4))
+    # rows whose L is not a multiple of 16 (the scalar path)
+    for L in (15, 17, 4097):
+        cases.append((f"stacked_3x{L}", _candidates(rng, L, 50, True, True,
+                                                     rows=3), 50))
+    # ok prefixes that start and end mid-group, and all-dead groups next
+    # to all-ok ones, on the 16-lane path
+    cases.append(("prefix_mid_group_4x8192", _prefix_ok(
+        rng, 4, 8192, 1024, [0, 1, 7, 8, 9, 15, 17, 333, 1023, 1024]), 97))
+    cases.append(("prefix_whole_groups_2x8192", _prefix_ok(
+        rng, 2, 8192, 2048, [0, 512, 1024, 2048]), 97))
+    # a hot-slot storm: 2^20 lanes on 2 slots, exact (w, eid) ties and
+    # different payloads; every lane passes the filter, so the list
+    # overflows and the payloads take the full pass
+    storm = 1 << 20
+    cases.append(("hot_slot_storm_2^20", (
+        (np.arange(storm) % 2).astype(np.int32),
+        np.full(storm, 3.0, np.float32), np.full(storm, 77, np.int32),
+        rng.integers(0, 1 << 30, storm).astype(np.int32),
+        rng.integers(0, 1 << 30, storm).astype(np.int32),
+        np.ones(storm, bool)), 2))
+    # keys decreasing in lane order: later lanes keep lowering the keys,
+    # so many take the atomic and the list
+    dec = 1 << 16
+    cases.append(("decreasing_keys_2^16", (
+        (np.arange(dec) % 16).astype(np.int32),
+        np.linspace(1000, 1, dec).astype(np.float32),
+        np.arange(dec)[::-1].astype(np.int32),
+        rng.integers(0, 100, dec).astype(np.int32),
+        rng.integers(0, 100, dec).astype(np.int32), np.ones(dec, bool)), 16))
     for name, arrays, size in cases:
-        args = [torch.from_numpy(a).to(dev) for a in arrays]
-        got = owner_scatter_min(*args, size)
-        exp = owner_scatter_min_ref(*args, size)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(g, e) for g, e in zip(got, exp))
-        err = max_abs_diff(got, exp)
-        log(f"k1 parity {name}: shape={tuple(args[0].shape)} size={size} "
-            f"max|diff|={err} equal={equal}")
-        check(equal, f"K1 differs from its plain version on {name}")
+        for alias in (False, True):
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            if alias:
+                args[4] = args[3]
+            _k1_case(f"{name}{' alias' if alias else ''}", args, size)
+    # inputs sliced one element in: no pointer is 16-byte aligned
+    idx, w, eid, p1, p2, ok = _prefix_ok(rng, 1, 4097, 4097,
+                                         [0, 1, 2049, 4097])
+    full = [torch.from_numpy(a[0]).to(dev) for a in (idx, w, eid, p1, p2,
+                                                      ok)]
+    _k1_case("sliced_offset_1", [a[1:] for a in full], 97)
+    _k1_case("sliced_offset_1 ok only",
+             [a[:-1] for a in full[:5]] + [full[5][1:]], 97)
+
+
+def list_use_text(use) -> str:
+    """K1's list use as the logs show it: lanes listed for the payload
+    pass, entries the warps reserved (128 at a time), the capacity."""
+    if use is None:
+        return ""
+    listed = ("(overflow: full pass)" if use.listed is None
+              else f"listed={use.listed}")
+    return f" {listed} reserved={use.reserved} capacity={use.capacity}"
+
+
+def _k1_case(name, args, size) -> None:
+    """K1 against its plain version on one wall case, with what it put on
+    the list of its payload pass."""
+    import torch
+    from repro_torch.kernels.segmin.ref import owner_scatter_min_ref
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min_list_use
+    got, use = owner_scatter_min_list_use(*args, size)
+    exp = owner_scatter_min_ref(*args, size)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(g, e) for g, e in zip(got, exp))
+    err = max_abs_diff(got, exp)
+    log(f"k1 parity {name}: shape={tuple(args[0].shape)} size={size}"
+        f"{list_use_text(use)} max|diff|={err} equal={equal}")
+    check(equal, f"K1 differs from its plain version on {name}")
 
 
 def _relabel_case(rng, m, n, inf_tail=False):
@@ -266,9 +344,27 @@ def k3_parity_wall(dev) -> float:
     for b in (8, 100, 1024, 4096):
         cases.append((f"ragged_b{b}", _sorted_runs(rng, 10007, 2500,
                                                    b == 100), b))
+    for b in (3, 4, 5, 13, 516):
+        cases.append((f"ragged_b{b}", _sorted_runs(rng, 10007, 2500,
+                                                   b == 5), b))
+    # runs that cross thread chunks (4 elements), warps (128) and tiles
+    # (512), with unsorted seg whose values recur
+    lens = [1, 3, 4, 5, 127, 128, 129, 600, 2, 1100, 33, 4000]
+    seg = np.repeat(np.arange(len(lens)) % 5, lens).astype(np.int32)
+    runs = (seg, rng.choice(np.array([0.0, -0.0, 1.0, np.inf], np.float32),
+                            len(seg)),
+            rng.integers(0, 50, len(seg)).astype(np.int32),
+            rng.random(len(seg)) < 0.7)
+    for b in (512, 513, 2048):
+        cases.append((f"long_runs_b{b}", runs, b))
+    # inputs sliced one element in: no pointer is 16-byte aligned
+    seg, w, eid, alive = _sorted_runs(rng, 5001, 600)
+    cases.append(("sliced_offset_1", (seg, w, eid, alive), 512))
     worst = 0.0
     for name, arrays, block in cases:
         args = [torch.from_numpy(a).to(dev) for a in arrays]
+        if name.startswith("sliced"):
+            args = [a[1:] for a in args]
         m = args[0].shape[0]
         got = segmin_candidates(*args, block=block)
         exp = segmin_candidates_ref(*args, min(block, max(m, 8)))
@@ -345,7 +441,11 @@ def compare_engine_paths(dev, u, v, w, n, algorithm, captured=None):
 
     def keep_first_inputs(*args):
         if captured is not None and "args" not in captured:
-            captured["args"] = tuple(a.clone() for a in args[:6])
+            # one copy per tensor, so that a payload passed as both pay1
+            # and pay2 (as the engine does) stays one buffer
+            copies = {}
+            captured["args"] = tuple(copies.setdefault(id(a), a.clone())
+                                     for a in args[:6])
             captured["size"] = args[6]
         return real(*args)
 
@@ -398,14 +498,42 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_split(fn, reps, names):
+    """Device time per call of each kernel or copy whose name holds one
+    of ``names``, from ``torch.profiler`` over ``reps`` calls of ``fn``;
+    ``{}`` where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        for name in names:
+            if name in ev.key and us:
+                split[name] = split.get(name, 0.0) + us / 1e3 / reps
+    return split
+
+
+K1_STAGES = ("min_pass", "resolve_list", "resolve_all", "Memset", "Memcpy")
+
+
 def time_k1(args, size):
     import torch
     from repro_torch.kernels.segmin.ref import owner_scatter_min_ref
-    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
+                                                   owner_scatter_min_list_use)
 
     idx, w, eid, pay1, pay2, ok = args
     rows, L = idx.shape
-    got = owner_scatter_min(*args, size)
+    got, use = owner_scatter_min_list_use(*args, size)
     exp = owner_scatter_min_ref(*args, size)
     torch.cuda.synchronize()
     equal = all(torch.equal(g, e) for g, e in zip(got, exp))
@@ -421,6 +549,8 @@ def time_k1(args, size):
     del got, exp, slot
     plain_ms = time_ms(lambda: owner_scatter_min_ref(*args, size), 3)
     ms = time_ms(lambda: owner_scatter_min(*args, size), 20)
+    split = device_split(lambda: owner_scatter_min(*args, size), 10,
+                         K1_STAGES)
     # library yardstick: one scatter_reduce_ amin of a packed (w, eid)
     # int64 key (w > 0 on this path, so its bits order as integers); lanes
     # that are not ok carry the neutral key, spread over the row's slots
@@ -435,13 +565,16 @@ def time_k1(args, size):
     library_ms = time_ms(lambda: table.fill_(torch.iinfo(torch.int64).max)
                          .scatter_reduce_(0, flat, key, "amin"), 20)
     # each lane's ok byte read once, idx/w/eid (12 B) of each ok lane,
-    # pay1/pay2 (8 B) of each winning lane, 16 B written per slot
-    bytes_moved = rows * L + 12 * n_ok + 8 * n_win + 16 * rows * size
+    # the payloads of each winning lane (4 B where pay1 and pay2 are one
+    # buffer, as the engine passes them, else 8 B), 16 B written per slot
+    pay_bytes = 4 if pay1.data_ptr() == pay2.data_ptr() else 8
+    bytes_moved = (rows * L + 12 * n_ok + pay_bytes * n_win
+                   + 16 * rows * size)
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     return dict(equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, lanes=rows * L,
-                ok_lanes=n_ok, win_lanes=n_win, slots=rows * size,
-                bytes=bytes_moved)
+                ok_lanes=n_ok, win_lanes=n_win, list_use=use,
+                slots=rows * size, bytes=bytes_moved, split=split)
 
 
 # ---------------------------------------------------------------------------
@@ -580,6 +713,22 @@ def time_k3(directed, labels, block=512, reps=20):
     err = max_abs_diff(got, exp)
     del got, exp
     m = seg.shape[0]
+    # library yardstick: one scatter_reduce_ amin of the packed (w, eid)
+    # int64 key (w > 0 on this path) into a per-(block, run) table.  It
+    # computes less: run minima into a table, not placed at run ends.
+    # The run ids are built outside the timed window.
+    head = torch.ones(m, dtype=torch.bool, device=seg.device)
+    head[1:] = seg[1:] != seg[:-1]
+    head[::block] = True
+    rid = torch.cumsum(head, 0) - 1
+    top = torch.iinfo(torch.int64).max
+    key = torch.where(alive, (wp.view(torch.int32).long() << 32)
+                      | eid.long(), top)
+    table = torch.empty(int(rid[-1]) + 1, dtype=torch.int64,
+                        device=seg.device)
+    library_ms = time_ms(lambda: table.fill_(top).scatter_reduce_(
+        0, rid, key, "amin"), reps)
+    del head, rid, key, table
     # seg, w, eid (12 B) and alive (1 B) read, cand_w, cand_eid written
     bytes_moved = 21 * m
     return dict(equal=equal, max_abs_err=err, m=m, bytes=bytes_moved,
@@ -588,6 +737,7 @@ def time_k3(directed, labels, block=512, reps=20):
                            reps),
                 plain_ms=time_ms(lambda: segmin_candidates_ref(*args, block),
                                  3),
+                library_ms=library_ms,
                 bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3)
 
 
@@ -702,7 +852,8 @@ def main() -> int:
     args, size = captured["args"], captured["size"]
     k1 = time_k1(args, size)
     log(f"k1 engine shape: rows={args[0].shape[0]} L={args[0].shape[1]} "
-        f"size={size} ok lanes={k1['ok_lanes']} winning lanes="
+        f"size={size} pay1 is pay2: {args[3] is args[4]} ok lanes="
+        f"{k1['ok_lanes']}{list_use_text(k1['list_use'])} winning lanes="
         f"{k1['win_lanes']} max|diff|="
         f"{k1['max_abs_err']} equal={k1['equal']}")
     check(k1["equal"], "K1 differs from its plain version at the engine's "
@@ -711,6 +862,9 @@ def main() -> int:
         f"ms, library scatter_reduce_ {k1['library_ms']:.4f} ms, bound "
         f"{k1['bound_ms']:.4f} ms ({k1['bytes']} B at 3.35 TB/s); "
         f"launches per solve: {json.dumps(launches)}")
+    split = ", ".join(f"{k} {v:.4f} ms" for k, v in k1["split"].items())
+    log(f"k1 split per launch (torch.profiler device time): "
+        f"{split or 'not measured (no device time in the trace)'}")
 
     # phase 6: the single-device selection through K2 and K3
     del edges, mask, args, captured  # K1's inputs alone hold 5.3 GiB
@@ -795,11 +949,14 @@ def main() -> int:
     for (gn, r), res in k3.items():
         log(f"k3 timing gnm n={gn} round {r}: m={res['m']} alive="
             f"{res['alive']} block=512 {res['ms']:.4f} ms/launch, plain "
-            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"{res['plain_ms']:.4f} ms, library scatter_reduce_ "
+            f"{res['library_ms']:.4f} ms (computes less: run minima into "
+            f"a table, not placed at run ends), bound "
+            f"{res['bound_ms']:.4f} ms "
             f"({res['bytes']} B at 3.35 TB/s), launches per selection "
             f"path {selections[gn]['launches']['segmin_candidates']}, "
             f"max|diff|={res['max_abs_err']}")
-    log(f"library: null for K2 and K3: {NO_LIBRARY}")
+    log(f"library: null for K2: {NO_LIBRARY}")
     k2_main = k2[(GNM_N, 1)]
     k3_main = k3[(GNM_N, 1)]
 
@@ -824,7 +981,7 @@ def main() -> int:
                                     + [r["max_abs_err"] for r in k3.values()]),
                     ms=k3_main["ms"], plain_ms=k3_main["plain_ms"],
                     bound_ms=k3_main["bound_ms"], bound_by="bytes",
-                    library_ms=None)]
+                    library_ms=k3_main["library_ms"])]
     log(f"total: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

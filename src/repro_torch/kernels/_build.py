@@ -6,7 +6,9 @@ Each kernel is one ``.cu`` file with a plain C entry point, compiled by
 named by a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is reused.  Nothing is built at import
 time: ``load`` builds on first use, ``build_all`` builds every kernel at
-once (one ``nvcc`` per source, all started together).
+once (one ``nvcc`` per source, all started together).  A kernel's launch
+constants come from ``segmin/plan.py: CUDA_CONSTANTS`` as ``-D`` flags
+(``flags``), so the host's plan and the kernel share one definition.
 ``check_tensors`` and ``launch`` are what every wrapper shares: the
 checks of device, dtype, shape and contiguity, and the launch on the
 current stream that raises on a non-zero ``cudaError_t``.
@@ -52,10 +54,18 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """``nvcc`` flags of kernel ``name``: ``NVCC_FLAGS`` and a ``-D`` flag
+    for each of its constants in ``plan.CUDA_CONSTANTS``."""
+    from repro_torch.kernels.segmin.plan import CUDA_CONSTANTS
+    return NVCC_FLAGS + tuple(
+        f"-D{k}={v}" for k, v in CUDA_CONSTANTS.get(name, {}).items())
+
+
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -80,7 +90,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(SOURCES[name])]
         todo[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out, time.perf_counter())
