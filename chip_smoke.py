@@ -12,23 +12,34 @@ Phases, each fatal on failure (exit 1):
      size 0, non-dividing lengths, stacked shards; for K1 also rows of
      L = 15, 17 and 4097, ok prefixes that end mid-group, all-dead
      groups beside all-ok ones, a 2^20-lane hot-slot storm that
-     overflows the candidate list, keys decreasing in lane order and
-     inputs sliced one element in, each with pay1 aliased to pay2 and
-     not), exact equality;
+     overflows the candidate list, keys decreasing in lane order, inputs
+     sliced one element in, and the per-run combine's class of input —
+     sorted run ids whose runs cross 16-lane groups, warp tiles and
+     rows, size = L, dead lanes in mid-run — each with pay1 aliased to
+     pay2 and not), exact equality;
   3. drive the main path: ``minimum_spanning_forest(engine=
-     "distributed_sharded", num_shards=8, pallas_minedges=True)`` with
-     every other lever off, on GNM n = 2^20, m = 2^23 (seed 0), for both
-     algorithms — the K1 launch count must rise; the result must equal
-     the same solve through the plain scatter path (edge set, labels,
-     overflow = 0, every CommStats field) and match scipy's MST weight
-     within 1e-3 relative with n - #components edges;
-  4. the same call on RMAT (scale 16, average degree 8) and the static
-     engine on that graph, both against the exact Kruskal edge set;
-  5. time K1 at the shape the engine gave it (CUDA events; pay1 and
-     pay2 one buffer, as the engine passes them) beside its plain
-     version, one ``scatter_reduce_`` over a packed key as a library
-     yardstick, and its bound from device-memory bytes; split its time
-     among its launches with ``torch.profiler``;
+     "distributed_sharded", num_shards=8, pallas_minedges=True,
+     ghost_cache=False)`` — every lever of the reference but the ghost
+     cache, so the shrinking-capacity driver — on GNM n = 2^20,
+     m = 2^23 (seed 0), for both algorithms.  K1 must launch at both
+     MINEDGES sites in every round (the per-run combine and the
+     owner-side scatter-min, counted apart); the result must equal the
+     same solve through the plain scatter path on one prebuilt layout
+     (edge set, labels, overflow = 0, every CommStats field, every
+     round_trace row) and match scipy's MST weight within 1e-3 relative
+     with n - #components edges.  The time spent in the driver's host
+     bounds is reported apart;
+  3b. the earlier path, every lever off (``OFF``), checked the same way;
+  4. the lever path and the ``OFF`` path on RMAT (scale 16, average
+     degree 8) and the static engine on that graph, all against the
+     exact Kruskal edge set;
+  5. time K1 at the two shapes the engine gave it — the ``OFF`` path's
+     owner-side scatter-min (pay1 and pay2 one buffer, as the engine
+     passes them) and the lever path's round-1 per-run combine (sorted
+     run ids, size = L, pay1 and pay2 two buffers) — with CUDA events,
+     beside its plain version, one ``scatter_reduce_`` over a packed key
+     as a library yardstick, and its bound from device-memory bytes;
+     split its time among its launches with ``torch.profiler``;
   2b. (run right after phase 2) hold K2 (``relabel``) and K3
      (``segmin_candidates``) against their plain versions on their walls
      (the reference's test shapes, +inf tails, out-of-range and negative
@@ -71,6 +82,9 @@ RMAT_SCALE, RMAT_DEGREE = 16, 8
 OFF = dict(local_preprocessing=False, coalesce=False, src_only=False,
            adaptive_doubling=False, shrink_capacities=False,
            ghost_cache=False, relabel_skip=False)
+# the reference's defaults but the ghost cache: the main path
+LEVERS = dict(ghost_cache=False)
+PATHS = {"levers": LEVERS, "OFF": OFF}
 SMALL_N = 1 << 15  # K2's resident-table regime (n' <= 35 000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 K1_SOURCE = "src/repro_torch/kernels/segmin/csrc/owner_scatter_min.cu"
@@ -154,6 +168,31 @@ def _prefix_ok(rng, rows, L, seg_len, prefixes):
     return idx, w, eid, pay1, pay2, ok
 
 
+def _combine_site(rng, rows, L):
+    """K1 inputs of the per-run combine's class: per row the run ids of
+    sorted runs (lengths 1 to 1499, cut at row ends, so runs cross
+    16-lane groups, 512-lane warp tiles and rows), tie-heavy weights,
+    pay2 constant along a run and pay1 not, 30% of the lanes dead in
+    mid-run (w = +inf, as the engine passes them) and every fifth run
+    dead."""
+    import numpy as np
+    total = rows * L
+    ends = np.cumsum(rng.integers(1, 1500, 2 * total // 750 + 16))
+    check(ends[-1] >= total, "combine-site case: the runs do not fill "
+          "the rows")
+    run = np.zeros(total, np.int64)
+    run[ends[ends < total]] = 1
+    run = np.cumsum(run).reshape(rows, L)
+    idx = (run - run[:, :1]).astype(np.int32)  # each row from run 0
+    w = rng.integers(1, 6, (rows, L)).astype(np.float32)
+    eid = rng.integers(0, 2 ** 20, (rows, L)).astype(np.int32)
+    pay1 = rng.integers(0, 1 << 20, (rows, L)).astype(np.int32)
+    pay2 = (run * 7919 % 100003).astype(np.int32)
+    ok = (rng.random((rows, L)) < 0.7) & (run % 5 != 0)
+    w[~ok] = np.inf
+    return idx, w, eid, pay1, pay2, ok
+
+
 def k1_parity_wall(dev) -> None:
     import numpy as np
     import torch
@@ -216,6 +255,10 @@ def k1_parity_wall(dev) -> None:
         np.arange(dec)[::-1].astype(np.int32),
         rng.integers(0, 100, dec).astype(np.int32),
         rng.integers(0, 100, dec).astype(np.int32), np.ones(dec, bool)), 16))
+    # the per-run combine's class: sorted run ids, size = L, pay1 != pay2
+    for rows, L in ((8, 65536), (3, 4097)):
+        cases.append((f"combine_sorted_{rows}x{L}",
+                      _combine_site(rng, rows, L), L))
     for name, arrays, size in cases:
         for alias in (False, True):
             args = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -401,67 +444,165 @@ def scipy_msf(u, v, w, n):
     return float(t.sum()), n - ncomp
 
 
-def run_main_path(dev, u, v, w, n, algorithm):
+class K1Sites:
+    """While active, counts K1's launches at each MINEDGES site apart —
+    ``owner`` inside ``_owner_scatter_min``, ``combine`` (the src-only
+    per-run combine) everywhere else — from the wrapper's own launch
+    count, and keeps a copy of the inputs of the first launch at the
+    site named by ``capture``."""
+
+    def __init__(self, capture=None):
+        self.owner = 0
+        self.combine = 0
+        self.capture = capture
+        self.captured = None
+
+    def __enter__(self):
+        from repro_torch.core import distributed_sharded as ds
+        from repro_torch.kernels.segmin import ops as segmin_ops
+        from repro_torch.kernels.segmin.segmin import owner_scatter_min
+        self._saved = (ds, ds._owner_scatter_min, segmin_ops,
+                       segmin_ops.owner_scatter_min)
+        site_fn, k1_fn = self._saved[1], self._saved[3]
+        inside = []
+
+        def owner_site(*args, **kw):
+            inside.append(True)
+            try:
+                return site_fn(*args, **kw)
+            finally:
+                inside.pop()
+
+        def k1(*args):
+            site = "owner" if inside else "combine"
+            before = owner_scatter_min.launches
+            out = k1_fn(*args)
+            launched = owner_scatter_min.launches - before
+            setattr(self, site, getattr(self, site) + launched)
+            if (launched and site == self.capture
+                    and self.captured is None):
+                # one copy per tensor, so that a payload passed as both
+                # pay1 and pay2 (as the owner site does) stays one buffer
+                copies = {}
+                self.captured = (tuple(copies.setdefault(id(a), a.clone())
+                                       for a in args[:6]), args[6])
+            return out
+
+        ds._owner_scatter_min = owner_site
+        segmin_ops.owner_scatter_min = k1
+        return self
+
+    def __exit__(self, *exc):
+        ds, site_fn, segmin_ops, k1_fn = self._saved
+        ds._owner_scatter_min = site_fn
+        segmin_ops.owner_scatter_min = k1_fn
+        return False
+
+
+class HostBounds:
+    """While active, the host clock spent in the shrinking driver's numpy
+    bounds: the host copy of the layout and its run structure
+    (``_HostGraph``), the lookup bound of the whole graph and each
+    round's bounds (``_host_round_caps``); nested calls count once."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.core import distributed_sharded as ds
+        self._ds = ds
+        self._saved = {name: getattr(ds, name)
+                       for name in ("_lookup_bound", "_host_round_caps")}
+        self._init = ds._HostGraph.__init__
+        depth = [0]
+
+        def timed(fn):
+            def run(*args, **kw):
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    depth[0] -= 1
+                    if depth[0] == 0:
+                        self.seconds += time.perf_counter() - t0
+                        self.calls += 1
+            return run
+
+        for name, fn in self._saved.items():
+            setattr(ds, name, timed(fn))
+        ds._HostGraph.__init__ = timed(self._init)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._ds, name, fn)
+        self._ds._HostGraph.__init__ = self._init
+        return False
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.relabel.relabel import relabel
+    from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
+                                                   segmin_candidates)
+    for fn in (owner_scatter_min, relabel, segmin_candidates):
+        fn.launches = 0
+
+
+def run_main_path(dev, u, v, w, n, algorithm, levers):
     """One warm-up, then the counted solve through the public entry
-    point.  Returns (mask, weight, seconds, K1 launches)."""
+    point with the counts set to 0 just before it.  Returns (mask,
+    weight, seconds, K1 sites, round_trace, host-bound seconds)."""
     import torch
     from repro_torch.core.graph import from_numpy
     from repro_torch.core.mst import minimum_spanning_forest
-    from repro_torch.kernels.segmin.segmin import owner_scatter_min
 
     edges = from_numpy(u, v, w, n, device=dev)
     kw = dict(engine="distributed_sharded", num_shards=NUM_SHARDS,
-              algorithm=algorithm, pallas_minedges=True, **OFF)
+              algorithm=algorithm, pallas_minedges=True, **levers)
     minimum_spanning_forest(edges, **kw)  # warm-up
     torch.cuda.synchronize()
-    owner_scatter_min.launches = 0
-    t0 = time.perf_counter()
-    mask, weight = minimum_spanning_forest(edges, **kw)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return mask, weight, seconds, owner_scatter_min.launches
+    trace = []
+    reset_counts()
+    with K1Sites() as sites, HostBounds() as host:
+        t0 = time.perf_counter()
+        mask, weight = minimum_spanning_forest(edges, round_trace=trace,
+                                               **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return mask, weight, seconds, sites, trace, host.seconds
 
 
-def compare_engine_paths(dev, u, v, w, n, algorithm, captured=None):
+def compare_engine_paths(dev, u, v, w, n, algorithm, levers, capture=None):
     """The engine on one prebuilt layout through K1 and through the
-    plain scatters: every output must be equal.  With ``captured`` (a
-    dict), the inputs of the kernel run's first K1 launch are kept there,
+    plain scatters: every output and round_trace row must be equal.
+    ``capture`` names the K1 site whose first launch's inputs are kept,
     to time K1 at the engine's shape.  Returns (graph, result, engine
-    seconds, host layout build seconds)."""
+    seconds, host layout build seconds, K1 sites, round_trace,
+    host-bound seconds)."""
     import torch
     from repro_torch.core import distributed_sharded as ds
     from repro_torch.core.distributed import build_dist_graph
-    from repro_torch.kernels.segmin import ops as segmin_ops
 
     t0 = time.perf_counter()
     g, _ = build_dist_graph(u, v, w, n, NUM_SHARDS, device=dev)
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t0
-    real = segmin_ops.owner_scatter_min
-
-    def keep_first_inputs(*args):
-        if captured is not None and "args" not in captured:
-            # one copy per tensor, so that a payload passed as both pay1
-            # and pay2 (as the engine does) stays one buffer
-            copies = {}
-            captured["args"] = tuple(copies.setdefault(id(a), a.clone())
-                                     for a in args[:6])
-            captured["size"] = args[6]
-        return real(*args)
-
-    segmin_ops.owner_scatter_min = keep_first_inputs
-    try:
+    trace, plain_trace = [], []
+    with K1Sites(capture) as sites, HostBounds() as host:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         kern = ds.distributed_sharded_msf(g, n, NUM_SHARDS,
                                           algorithm=algorithm,
-                                          pallas_minedges=True, **OFF)
+                                          pallas_minedges=True,
+                                          round_trace=trace, **levers)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        segmin_ops.owner_scatter_min = real
     plain = ds.distributed_sharded_msf(g, n, NUM_SHARDS, algorithm=algorithm,
-                                       pallas_minedges=False, **OFF)
+                                       pallas_minedges=False,
+                                       round_trace=plain_trace, **levers)
     torch.cuda.synchronize()
     names = ("mask", "weight", "count", "labels", "overflow")
     for name, a, b in zip(names, kern[:5], plain[:5]):
@@ -470,8 +611,10 @@ def compare_engine_paths(dev, u, v, w, n, algorithm, captured=None):
     for field, a, b in zip(kern[5]._fields, kern[5], plain[5]):
         check(torch.equal(a, b), f"{algorithm}: CommStats.{field} differs "
               "between the K1 and plain paths")
+    check(trace == plain_trace, f"{algorithm}: round_trace differs between "
+          "the K1 and plain paths")
     check(int(kern[4]) == 0, f"{algorithm}: overflow {int(kern[4])}")
-    return g, kern, seconds, layout_s
+    return g, kern, seconds, layout_s, sites, trace, host.seconds
 
 
 def kruskal_check(kmask, mask, what):
@@ -771,10 +914,6 @@ def main() -> int:
 
     counted = (owner_scatter_min, relabel, segmin_candidates)
 
-    def reset_counts():
-        for fn in counted:
-            fn.launches = 0
-
     start = time.perf_counter()
     dev = torch.device("cuda")
     smi = gpu_line()
@@ -796,7 +935,7 @@ def main() -> int:
     k2_err = k2_parity_wall(dev)
     k3_err = k3_parity_wall(dev)
 
-    # phase 3: the main path on GNM
+    # phases 3 and 3b: the lever path (the main path), then the OFF path
     t0 = time.perf_counter()
     u, v, w, n = generators.gnm(GNM_N, GNM_M, seed=SEED)
     log(f"gnm: n={n} m={len(u)} generated in "
@@ -804,70 +943,111 @@ def main() -> int:
     ref_weight, ref_count = scipy_msf(u, v, w, n)
     captured = {}
     launches = {}
-    for algorithm in ("boruvka", "filter_boruvka"):
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        mask, weight, secs, k1 = run_main_path(dev, u, v, w, n, algorithm)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        count = int(mask.sum())
-        rel = abs(float(weight) - ref_weight) / ref_weight
-        log(f"main path gnm {algorithm}: solve {secs:.3f} s wall "
-            f"(public API, incl. host layout build) after one warm-up; "
-            f"K1 launches {k1}; edges {count} (scipy {ref_count}); "
-            f"weight {float(weight):.1f} (scipy {ref_weight:.1f}, rel "
-            f"{rel:.2e}); peak device memory {peak:.2f} GiB")
-        check(k1 > 0, f"{algorithm}: the main path launched K1 no time")
-        check(count == ref_count, f"{algorithm}: {count} MSF edges, scipy "
-              f"{ref_count}")
-        check(rel < 1e-3, f"{algorithm}: weight off by {rel:.2e} relative")
-        launches[algorithm] = k1
-        g, res, engine_s, layout_s = compare_engine_paths(
-            dev, u, v, w, n, algorithm,
-            captured if algorithm == "boruvka" else None)
-        sel = np.unique(g.eid.cpu().numpy()[res[0].cpu().numpy()])
-        check(np.array_equal(sel, np.nonzero(mask.cpu().numpy())[0]),
-              f"{algorithm}: public API and engine edge sets differ")
-        stats = {f: float(x) for f, x in zip(res[5]._fields, res[5])}
-        log(f"engine gnm {algorithm}: {engine_s:.3f} s on a prebuilt "
-            f"layout (host layout build {layout_s:.3f} s), K1 and plain "
-            f"paths equal (mask, labels, overflow 0, "
-            f"CommStats {json.dumps(stats)})")
-        del g, res, mask
+    for path, levers in PATHS.items():
+        for algorithm in ("boruvka", "filter_boruvka"):
+            torch.cuda.reset_peak_memory_stats()
+            mask, weight, secs, sites, trace, host_s = run_main_path(
+                dev, u, v, w, n, algorithm, levers)
+            k1 = owner_scatter_min.launches
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            count = int(mask.sum())
+            rel = abs(float(weight) - ref_weight) / ref_weight
+            log(f"{path} path gnm {algorithm}: solve {secs:.3f} s wall "
+                f"(public API, incl. host layout build; {host_s:.3f} s "
+                f"of it in the driver's host bounds) after one warm-up; "
+                f"K1 launches {k1} (per-run combine {sites.combine}, "
+                f"owner-side {sites.owner}); round_trace rows "
+                f"{len(trace)}; edges {count} (scipy {ref_count}); "
+                f"weight {float(weight):.1f} (scipy {ref_weight:.1f}, rel "
+                f"{rel:.2e}); peak device memory {peak:.2f} GiB")
+            check(k1 > 0, f"{path} {algorithm}: the main path launched K1 "
+                  "no time")
+            check(k1 == sites.combine + sites.owner,
+                  f"{path} {algorithm}: K1 launched outside its two sites")
+            if levers is LEVERS:
+                check(sites.combine == sites.owner == len(trace) > 0,
+                      f"{algorithm}: K1 must launch at both MINEDGES sites "
+                      f"in each of the {len(trace)} rounds (per-run "
+                      f"combine {sites.combine}, owner-side {sites.owner})")
+            else:
+                check(sites.combine == 0, "the OFF path has no per-run "
+                      "combine, yet K1 launched there")
+            check(count == ref_count, f"{path} {algorithm}: {count} MSF "
+                  f"edges, scipy {ref_count}")
+            check(rel < 1e-3, f"{path} {algorithm}: weight off by "
+                  f"{rel:.2e} relative")
+            launches[(path, algorithm)] = dict(
+                total=k1, combine=sites.combine, owner=sites.owner)
+            capture = None
+            if algorithm == "boruvka":
+                capture = "combine" if levers is LEVERS else "owner"
+            (g, res, engine_s, layout_s, esites, etrace,
+             ehost_s) = compare_engine_paths(dev, u, v, w, n, algorithm,
+                                             levers, capture)
+            if capture:
+                captured[capture] = esites.captured
+            sel = np.unique(g.eid.cpu().numpy()[res[0].cpu().numpy()])
+            check(np.array_equal(sel, np.nonzero(mask.cpu().numpy())[0]),
+                  f"{path} {algorithm}: public API and engine edge sets "
+                  "differ")
+            stats = {f: float(x) for f, x in zip(res[5]._fields, res[5])}
+            log(f"{path} engine gnm {algorithm}: {engine_s:.3f} s on a "
+                f"prebuilt layout ({ehost_s:.3f} s of it in the host "
+                f"bounds; host layout build {layout_s:.3f} s), K1 and "
+                f"plain paths equal (mask, labels, overflow 0, "
+                f"round_trace, CommStats {json.dumps(stats)})")
+            if etrace:
+                keys = ("round", "level", "cap_edge", "cap_lookup",
+                        "cap_contract", "cap_relabel", "alive_bound",
+                        "a2a_calls", "routed_items", "buffer_bytes")
+                log(f"{path} round_trace gnm {algorithm}: " + json.dumps(
+                    [[row[k] for k in keys] for row in etrace]) +
+                    f" as {list(keys)}")
+            del g, res, mask
 
-    # phase 4: RMAT through the same call, and the static engine
+    # phase 4: RMAT through both paths, and the static engine
     ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
                                      * RMAT_DEGREE // 2, seed=SEED)
     edges = from_numpy(ru, rv, rw, rn, device=dev)
     rmat_kmask, _ = oracle.kruskal(ru, rv, rw, rn)
-    mask, _ = minimum_spanning_forest(
-        edges, engine="distributed_sharded", num_shards=NUM_SHARDS,
-        algorithm="boruvka", pallas_minedges=True, **OFF)
-    kruskal_check(rmat_kmask, mask, "rmat distributed_sharded")
+    for path, levers in PATHS.items():
+        mask, _ = minimum_spanning_forest(
+            edges, engine="distributed_sharded", num_shards=NUM_SHARDS,
+            algorithm="boruvka", pallas_minedges=True, **levers)
+        kruskal_check(rmat_kmask, mask, f"rmat distributed_sharded {path}")
     mask, _ = minimum_spanning_forest(edges, engine="static")
     kruskal_check(rmat_kmask, mask, "rmat static")
-    log(f"rmat scale {RMAT_SCALE} (n={rn}, m={len(ru)}): sharded and "
-        "static engines equal the Kruskal edge set")
+    log(f"rmat scale {RMAT_SCALE} (n={rn}, m={len(ru)}): sharded (lever "
+        "and OFF paths) and static engines equal the Kruskal edge set")
 
-    # phase 5: K1 at the engine's shape
-    args, size = captured["args"], captured["size"]
-    k1 = time_k1(args, size)
-    log(f"k1 engine shape: rows={args[0].shape[0]} L={args[0].shape[1]} "
-        f"size={size} pay1 is pay2: {args[3] is args[4]} ok lanes="
-        f"{k1['ok_lanes']}{list_use_text(k1['list_use'])} winning lanes="
-        f"{k1['win_lanes']} max|diff|="
-        f"{k1['max_abs_err']} equal={k1['equal']}")
-    check(k1["equal"], "K1 differs from its plain version at the engine's "
-          "shape")
-    log(f"k1 timing: {k1['ms']:.4f} ms/launch, plain {k1['plain_ms']:.4f} "
-        f"ms, library scatter_reduce_ {k1['library_ms']:.4f} ms, bound "
-        f"{k1['bound_ms']:.4f} ms ({k1['bytes']} B at 3.35 TB/s); "
-        f"launches per solve: {json.dumps(launches)}")
-    split = ", ".join(f"{k} {v:.4f} ms" for k, v in k1["split"].items())
-    log(f"k1 split per launch (torch.profiler device time): "
-        f"{split or 'not measured (no device time in the trace)'}")
+    # phase 5: K1 at the engine's two shapes
+    k1_sites = {}
+    for site in ("owner", "combine"):
+        args, size = captured[site]
+        k1 = time_k1(args, size)
+        k1_sites[site] = k1
+        what = ("OFF path owner-side scatter-min" if site == "owner" else
+                "lever path per-run combine, round 1")
+        log(f"k1 {what}: rows={args[0].shape[0]} L={args[0].shape[1]} "
+            f"size={size} pay1 is pay2: {args[3] is args[4]} ok lanes="
+            f"{k1['ok_lanes']}{list_use_text(k1['list_use'])} winning "
+            f"lanes={k1['win_lanes']} max|diff|="
+            f"{k1['max_abs_err']} equal={k1['equal']}")
+        check(k1["equal"], f"K1 differs from its plain version at the "
+              f"{what} shape")
+        log(f"k1 timing, {what}: {k1['ms']:.4f} ms/launch, plain "
+            f"{k1['plain_ms']:.4f} ms, library scatter_reduce_ "
+            f"{k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+            f"({k1['bytes']} B at 3.35 TB/s)")
+        split = ", ".join(f"{k} {v:.4f} ms" for k, v in k1["split"].items())
+        log(f"k1 split per launch, {what} (torch.profiler device time): "
+            f"{split or 'not measured (no device time in the trace)'}")
+        del args
+    log("k1 launches per solve: " + json.dumps(
+        {f"{p} {a}": c for (p, a), c in launches.items()}))
 
     # phase 6: the single-device selection through K2 and K3
-    del edges, mask, args, captured  # K1's inputs alone hold 5.3 GiB
+    del edges, mask, captured  # K1's owner-site inputs alone hold 5.3 GiB
     selections = {}
     for gn in (GNM_N, SMALL_N):
         t0 = time.perf_counter()
@@ -960,12 +1140,23 @@ def main() -> int:
     k2_main = k2[(GNM_N, 1)]
     k3_main = k3[(GNM_N, 1)]
 
+    k1 = k1_sites["combine"]
     kernels = [dict(name="owner_scatter_min", route="cuda",
                     source=K1_SOURCE, replaces=K1_REPLACES,
-                    launches=launches["boruvka"],
-                    max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-                    plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-                    bound_by="bytes", library_ms=k1["library_ms"]),
+                    launches=launches[("levers", "boruvka")]["total"],
+                    max_abs_err=max(k1["max_abs_err"],
+                                    k1_sites["owner"]["max_abs_err"]),
+                    ms=k1["ms"], plain_ms=k1["plain_ms"],
+                    bound_ms=k1["bound_ms"], bound_by="bytes",
+                    library_ms=k1["library_ms"],
+                    shape="per-run combine, round 1 of the lever path",
+                    owner_site=dict(
+                        launches=launches[("levers", "boruvka")]["owner"],
+                        shape="owner-side scatter-min of the OFF path",
+                        ms=k1_sites["owner"]["ms"],
+                        plain_ms=k1_sites["owner"]["plain_ms"],
+                        bound_ms=k1_sites["owner"]["bound_ms"],
+                        library_ms=k1_sites["owner"]["library_ms"])),
                dict(name="relabel", route="cuda", source=K2_SOURCE,
                     replaces=K2_REPLACES,
                     launches=big["launches"]["relabel"],

@@ -6,8 +6,9 @@ uses.  Graph representation (paper Section II-B): both directions of
 every undirected edge, lexicographically sorted, 1D-partitioned into
 equal padded shards; every directed copy carries the undirected edge id
 ``eid`` so that tie-breaking uses the direction-independent total order
-``(w, eid)``.  The replicated-label engine (``distributed_msf``) is not
-ported yet.
+``(w, eid)``.  ``shrink_schedule``/``quantize_capacity`` are the
+capacity ladder of the sharded engine's shrinking driver.  The
+replicated-label engine (``distributed_msf``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -113,6 +114,37 @@ def build_dist_graph(u: np.ndarray, v: np.ndarray, w: np.ndarray, n: int,
 
 def _doubling_iters(n: int) -> int:
     return max(1, math.ceil(math.log2(max(n, 2))))
+
+
+def shrink_schedule(full: int, floor: int = 1) -> Tuple[int, ...]:
+    """Geometric halving ladder ``(full, ceil(full/2), ..., floor)``.
+
+    Borůvka at least halves the active components per round, so a
+    per-round quantity bounded by the active set can be sized from this
+    ladder: the sharded engine's shrinking driver snaps its per-round
+    exchange capacities onto it.  For ``full >= 2`` it has
+    ``ceil(log2(full)) + 1`` rungs.
+    """
+    out = [max(int(full), floor)]
+    while out[-1] > floor:
+        out.append(max(-(-out[-1] // 2), floor))
+    return tuple(out)
+
+
+def quantize_capacity(bound: int, full: int, floor: int = 1) -> int:
+    """Smallest ``shrink_schedule(full, floor)`` rung ``>= bound``.
+
+    The rung is an upper bound on ``bound``; a ``bound`` above every rung
+    returns ``full``, so an undersized user capacity stays undersized
+    and its overflow is reported, not papered over.
+    """
+    best = max(int(full), floor)
+    for rung in shrink_schedule(full, floor):
+        if rung >= bound:
+            best = rung
+        else:
+            break
+    return best
 
 
 def _weight_pivots(w: torch.Tensor, valid: torch.Tensor,

@@ -1,10 +1,10 @@
 """Sharded-label distributed Borůvka / Filter-Borůvka (Section IV, the
 scalable path for n >> memory/PE).
 
-Port of ``repro/core/distributed_sharded.py``, flat baseline: every
-communication lever off (the reference's first sharded engine).  The
-label vector is 1D-sharded by vertex id (owner of ``vid`` is shard
-``vid // vps``) and every label access is a routed request/reply through
+Port of ``repro/core/distributed_sharded.py`` with every communication
+lever except the ghost-vertex label cache.  The label vector is
+1D-sharded by vertex id (owner of ``vid`` is shard ``vid // vps``) and
+every label access is a routed request/reply through
 ``comm/exchange.py``.  The reference runs one program per device under
 ``shard_map``; here the p shards are the leading axis of every tensor
 (``[p, cap]`` edges, ``[p, vps]`` labels) in one process, so
@@ -13,44 +13,59 @@ all-to-all a transpose.
 
 Per round (``_round_body``):
 
-  MINEDGES   both endpoint labels are looked up from their owners; each
-             directed copy ships a ``(comp, w, eid, other)`` candidate to
-             the owners of both endpoint components, which scatter-min
-             them in the ``(w, eid)`` order over their owned slots
-             (``_owner_scatter_min``, through the K1 kernel with
-             ``pallas_minedges=True``) and confirm the winners back.
+  MINEDGES   both endpoint labels are looked up from their owners — one
+             request per slot, or with ``coalesce`` one per contiguous
+             equal-endpoint run (the v column through the v-sorted index
+             ``VIndex`` unless ``vsorted_index=False``).  Candidates go
+             to the owners of both endpoint components, or with
+             ``src_only`` one per source run to the source component's
+             owner only, combined first per run (``_sharded_minedges_src``).
+             The owners scatter-min in the ``(w, eid)`` order over their
+             owned slots (``_owner_scatter_min``).  With
+             ``pallas_minedges=True`` both reductions — the per-run
+             combine and the owner-side scatter-min — go through K1.
   CONTRACT   pointer doubling over the sharded parent array, one routed
-             lookup per step, ``_doubling_iters(n)`` steps; the 2-cycle
-             of mutually chosen components keeps the smaller id as root.
+             lookup per step: ``_doubling_iters(n)`` steps, or with
+             ``adaptive_doubling`` until no parent changes (a host loop
+             reading one flag a step); the 2-cycle of mutually chosen
+             components keeps the smaller id as root.
   RELABEL    every owned vertex re-resolves its label through one more
-             lookup; slots whose endpoints share a component join the
-             persistent ``dead`` mask.
+             lookup; with ``relabel_skip`` a vertex whose component chose
+             nothing is settled and stops asking.  Slots whose endpoints
+             share a component join the persistent ``dead`` mask.
 
-The reference's fused ``while_loop`` becomes a host loop that reads the
-``go`` flag once per round.  Capacities are flat (``edge_capacity`` =
-edges/shard, ``label_capacity`` = vps) and every exchange reports
-overflow; results are exact iff it is 0.  The levers of the optimized
-engine raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
-until they are ported — a lever never quietly runs something else.
+``local_preprocessing`` contracts provably-local MSF edges without
+communication first (``_sharded_preprocess``).  With
+``shrink_capacities`` the host driver ``_shrinking_capacity_msf`` runs
+the rounds one at a time, each exchange sized from exact numpy bounds on
+the measured dead mask and label table, snapped to the ladder of
+``core/distributed.py: shrink_schedule``; otherwise the fused engine
+runs every round at the flat capacities (``edge_capacity`` =
+edges/shard, ``label_capacity`` = vps).  Every exchange reports
+overflow; results are exact iff it is 0.  ``ghost_cache=True``, ``plan``
+and the checkpoint arguments raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item — a lever never quietly runs something else.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.comm.exchange import (ExchangeStats, psum_f32, reply,
-                                       routed_exchange)
+from repro_torch.comm.exchange import (ExchangeStats, _hops, psum_f32,
+                                       reply, routed_exchange)
 from repro_torch.core.distributed import (ESENT, CommStats, DistGraph,
-                                          _doubling_iters, _weight_pivots)
+                                          _doubling_iters, _weight_pivots,
+                                          quantize_capacity)
 from repro_torch.core.graph import reference_order_sum
-from repro_torch.kernels.segmin.ops import scatter_min_tables
+from repro_torch.kernels.segmin.ops import run_metadata, scatter_min_tables
 
 _ESENT = int(ESENT)
 
-_LEVERS_ITEM = ("ROADMAP.md queue 1 item 8 (sharded engine, default "
-                "levers)")
+Runs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def vertices_per_shard(n: int, num_shards: int) -> int:
@@ -63,17 +78,62 @@ def _bases(p: int, vps: int, device: torch.device) -> torch.Tensor:
         p, 1)
 
 
-def _gather_rows(table: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+def _take(table: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     """``table[s, off[s, ...]]`` per shard; ``off`` in range."""
-    p, width = table.shape
-    base = torch.arange(p, dtype=torch.int64, device=table.device) * width
-    flat = off.reshape(p, -1).long() + base.view(p, 1)
-    return table.reshape(-1)[flat.reshape(-1)].view(off.shape)
+    p = table.shape[0]
+    return table.gather(1, off.reshape(p, -1).long()).view(off.shape)
+
+
+def _scatter_reduce(size: int, fill, idx: torch.Tensor, src: torch.Tensor,
+                    reduce: str) -> torch.Tensor:
+    """``full((p, size), fill).at[s, idx].{min,max}(src)`` per shard."""
+    out = torch.full((idx.shape[0], size), fill, dtype=src.dtype,
+                     device=src.device)
+    return out.scatter_reduce_(1, idx.long(), src, reduce)
+
+
+def _scatter_any(mask: torch.Tensor, idx: torch.Tensor,
+                 size: int) -> torch.Tensor:
+    """``zeros((p, size), bool).at[s, idx].max(mask)`` per shard: every
+    write is True, the rest go to a drop column."""
+    p = mask.shape[0]
+    out = torch.zeros((p, size + 1), dtype=torch.bool, device=mask.device)
+    out.scatter_(1, torch.where(mask, idx.long(), size), True)
+    return out[:, :size]
 
 
 # --------------------------------------------------------------------------
-# sharded building blocks (stacked [p, ...] tensors)
+# lookups (stacked [p, ...] tensors)
 # --------------------------------------------------------------------------
+
+class VIndex(NamedTuple):
+    """Per-shard v-sorted secondary index, ``[p, cap]`` each.
+
+    The edge slice is (u, v)-sorted, so the v column's equal-value runs
+    are short in slot order.  ``perm`` sorts each shard's slots by
+    ``where(valid, v, n)`` (padding at the tail), ``runs`` is
+    ``run_metadata`` over that permuted view (one run per distinct v),
+    ``key`` the permuted key column and ``rank`` maps each slot to its
+    distinct-v rank.  Static per solve.
+    """
+    perm: torch.Tensor
+    rank: torch.Tensor
+    runs: Runs
+    key: torch.Tensor
+
+
+def _build_v_index(v: torch.Tensor, valid: torch.Tensor, n: int,
+                   perm: Optional[torch.Tensor] = None) -> VIndex:
+    """Build the v-sorted index; ``perm`` lets the host driver pass its
+    numpy argsort (any stable sort of the same keys gives the same runs
+    and ranks)."""
+    key0 = torch.where(valid, v, n)
+    if perm is None:
+        perm = torch.sort(key0, dim=1, stable=True).indices.to(torch.int32)
+    runs = run_metadata(key0, perm=perm)
+    rank = torch.zeros_like(key0).scatter_(1, perm.long(), runs[2])
+    return VIndex(perm, rank, runs, _take(key0, perm))
+
 
 def _sharded_lookup(table: torch.Tensor, vids: torch.Tensor,
                     valid: torch.Tensor, vps: int, capacity: int,
@@ -97,12 +157,236 @@ def _sharded_lookup(table: torch.Tensor, vids: torch.Tensor,
     ex = routed_exchange(vids, vids // vps, valid, capacity, axis_sizes,
                          schedule, stats=stats, site=site)
     off = (ex.recv - base).clamp(0, vps - 1)
-    answers = torch.where(ex.recv_ok, _gather_rows(table, off), -1)
+    answers = torch.where(ex.recv_ok, _take(table, off), -1)
     out, st = reply(ex, answers, axis_sizes, schedule, stats=ex.stats)
     if count_misses:
         st = st._replace(misses=st.misses + (ex.stats.items - items0))
     return out, ex.sent_ok, ex.overflow, st
 
+
+def _coalesced_lookup(table, vids, runs: Runs, valid, vps: int,
+                      capacity: int, axis_sizes: Sequence[int],
+                      schedule: str, stats: ExchangeStats):
+    """``_sharded_lookup`` with one request per equal-vid run.
+
+    ``runs`` is ``run_metadata`` over ``vids``: only run heads whose run
+    holds a valid slot ask, and the answer fans back out through the
+    head index.  A dropped head drops its whole run, reported through
+    ``overflow``/``ok``."""
+    head, head_idx, run_id = runs
+    any_valid = _scatter_any(valid, run_id, valid.shape[1])
+    req = head & _take(any_valid, run_id)
+    out_h, ok_h, ovf, st = _sharded_lookup(
+        table, vids, req, vps, capacity, axis_sizes, schedule, stats,
+        count_misses=True)
+    return (_take(out_h, head_idx), valid & _take(ok_h, head_idx), ovf, st)
+
+
+def _vsorted_lookup(table, vidx: VIndex, valid, vps: int, capacity: int,
+                    axis_sizes: Sequence[int], schedule: str,
+                    stats: ExchangeStats):
+    """Coalesced lookup of the v endpoint through the v-sorted index: one
+    request per distinct-v run holding a valid slot, answers fanned out
+    per run and back to slot order through ``vidx.rank``."""
+    head, _, run_id = vidx.runs
+    p, L = valid.shape
+    run_live = _scatter_any(valid, vidx.rank, L)
+    req = head & _take(run_live, run_id)
+    out_h, ok_h, ovf, st = _sharded_lookup(
+        table, vidx.key, req, vps, capacity, axis_sizes, schedule, stats,
+        count_misses=True)
+    idx = torch.where(head, run_id, L).long()  # answers live at run heads
+    ra = torch.full((p, L + 1), -1, dtype=torch.int32, device=valid.device
+                    ).scatter_(1, idx, out_h)
+    okr = torch.zeros((p, L + 1), dtype=torch.bool, device=valid.device
+                      ).scatter_(1, idx, ok_h)
+    return (_take(ra, vidx.rank), valid & _take(okr, vidx.rank), ovf, st)
+
+
+def _relabel_lookup(parent, has, lab, settled, vps: int, capacity: int,
+                    axis_sizes: Sequence[int], schedule: str,
+                    stats: ExchangeStats):
+    """RELABEL with the settled-vertex skip.
+
+    Unsettled owned vertices ask ``owner(lab[x])`` for the contracted
+    parent and whether that component chose an edge this round.  A
+    component that chose nothing has no alive incident edge, so nothing
+    can merge into it either: its members' labels are final for the
+    level and stop asking.  Returns (lab, settled, overflow, stats).
+    """
+    p = lab.shape[0]
+    base = _bases(p, vps, lab.device).view(p, 1, 1)
+    req = ~settled
+    ex = routed_exchange(lab, lab // vps, req, capacity, axis_sizes,
+                         schedule, stats=stats, site="relabel")
+    off = (ex.recv - base).clamp(0, vps - 1)
+    ans_lab = torch.where(ex.recv_ok, _take(parent, off), -1)
+    ans_cho = ex.recv_ok & _take(has, off)
+    (out_lab, out_cho), st = reply(ex, (ans_lab, ans_cho), axis_sizes,
+                                   schedule, stats=ex.stats)
+    okr = req & ex.sent_ok
+    lab = torch.where(okr, out_lab, lab)
+    settled = settled | (okr & ~out_cho)
+    return lab, settled, ex.overflow, st
+
+
+# --------------------------------------------------------------------------
+# LOCALPREPROCESSING
+# --------------------------------------------------------------------------
+
+class _PrepSpace(NamedTuple):
+    """A shard's bucketed vertex space for LOCALPREPROCESSING, ``[p, cap]``
+    each: the distinct sources of its sorted edge slice by run rank."""
+    head: torch.Tensor        # slot starts a source run
+    du: torch.Tensor          # slot -> rank of its source
+    dv: torch.Tensor          # slot -> rank of its target (where found)
+    uvals: torch.Tensor       # rank -> vertex id (n past the last rank)
+    v_found: torch.Tensor     # the target is a source on this shard
+    local_edge: torch.Tensor  # neither endpoint is shared with a neighbour
+    shared_rank: torch.Tensor  # rank's vertex straddles a shard boundary
+    valid: torch.Tensor
+    w: torch.Tensor
+    eid: torch.Tensor
+    nloc: int                 # bound on distinct local vertices
+
+
+def _prep_space(u, v, w, eid, valid, n: int) -> _PrepSpace:
+    """The bucketed vertex space of each shard.  A vertex whose source run
+    straddles a shard boundary is shared; the reference finds those from
+    an ``all_gather`` of each shard's first and last source, here read
+    off columns 0 and ``cnt - 1`` of the stacked ``u``."""
+    p, cap = u.shape
+    dev = u.device
+    big = n  # > every vertex id; doubles as "no vertex"
+    cnt = valid.sum(1)
+    has_edges = cnt > 0
+    first = torch.where(has_edges, u[:, 0], -1)
+    last = torch.where(has_edges, _take(u, (cnt - 1).clamp(0, cap - 1)
+                                        .view(p, 1)).view(p), -2)
+    k = max(p - 1, 1)
+    if p > 1:
+        shared = (last[:-1] == first[1:]) & (last[:-1] >= 0)
+        # searchsorted is side="left" in both frameworks: padding n sorts
+        # to the end
+        sh_ids = torch.sort(torch.where(shared, last[:-1], big)).values
+    else:
+        sh_ids = torch.full((k,), big, dtype=torch.int32, device=dev)
+
+    def is_shared(x):
+        j = torch.searchsorted(sh_ids, x.contiguous()).clamp(0, k - 1)
+        return sh_ids[j] == x
+
+    vu = torch.where(valid, u, big)  # valid slots are a sorted prefix
+    head = torch.ones((p, cap), dtype=torch.bool, device=dev)
+    head[:, 1:] = vu[:, 1:] != vu[:, :-1]
+    du = torch.cumsum(head, 1, dtype=torch.int32) - 1
+    uvals = torch.full((p, cap), big, dtype=torch.int32, device=dev
+                       ).scatter_(1, du.long(), vu)
+    dv = torch.searchsorted(uvals, v.contiguous()).clamp(0, cap - 1)
+    v_found = (_take(uvals, dv) == v) & valid
+    return _PrepSpace(head, du, dv.to(torch.int32), uvals, v_found,
+                      valid & v_found & ~is_shared(u) & ~is_shared(v),
+                      is_shared(uvals), valid, w, eid,
+                      max(min(n, cap), 2))
+
+
+def _prep_round(sp: _PrepSpace, lab, mst):
+    """One contraction round in rank space on every shard.  Returns (lab,
+    mst, eligible [p] — the shard contracted a component).  A shard with
+    no eligible component comes back unchanged: ``parent`` is the
+    identity, so ``lab`` and ``mst`` stay as they are."""
+    p, cap = lab.shape
+    iota = torch.arange(cap, dtype=torch.int32, device=lab.device).expand(
+        p, cap)
+    sent = cap  # drop column of the [cap + 1] scatter tables
+    inf = float("inf")
+    ru = _take(lab, sp.du)
+    lv = _take(lab, sp.dv)
+    rvx = torch.where(sp.v_found, lv, sent)
+    alive = sp.valid & ~(sp.v_found & (ru == lv))
+    wk = torch.where(alive, sp.w, inf)
+    wmin = _scatter_reduce(cap + 1, inf, ru, wk, "amin")
+    wmin.scatter_reduce_(1, rvx.long(), wk, "amin")
+    # tie-break by the global undirected eid, the order every engine
+    # uses, so the contracted edges stay in the unique MSF
+    fin = torch.isfinite(wk)
+    at_min_u = fin & (wk == _take(wmin, ru))
+    at_min_v = fin & (wk == _take(wmin, rvx))
+    eminid = _scatter_reduce(cap + 1, _ESENT, ru,
+                             torch.where(at_min_u, sp.eid, _ESENT), "amin")
+    eminid.scatter_reduce_(1, rvx.long(),
+                           torch.where(at_min_v, sp.eid, _ESENT), "amin")
+    cu = torch.where(at_min_u & (sp.eid == _take(eminid, ru)), iota, sent)
+    cv = torch.where(at_min_v & (sp.eid == _take(eminid, rvx)), iota, sent)
+    emin = _scatter_reduce(cap + 1, sent, ru, cu, "amin")
+    emin.scatter_reduce_(1, rvx.long(), cv, "amin")
+    e = emin[:, :cap]
+    # contract only if the component's global-min edge is local
+    eligible = ((e < sent) & _take(sp.local_edge, e.clamp(0, cap - 1))
+                & ~sp.shared_rank)
+    ce = torch.where(eligible, e, sent).clamp(0, cap - 1)
+    cru = _take(lab, _take(sp.du, ce))
+    crv = _take(lab, _take(sp.dv, ce))
+    parent = torch.where(eligible, cru + crv - iota, iota)
+    gp = _take(parent, parent)
+    parent = torch.where((gp == iota) & (iota < parent), iota, parent)
+    for _ in range(_doubling_iters(sp.nloc)):
+        parent = _take(parent, parent)
+    mst = mst.scatter_reduce(1, ce.long(), eligible.to(torch.int32), "amax")
+    return _take(parent, lab), mst, eligible.any(1)
+
+
+def _sharded_preprocess(u, v, w, eid, valid, n: int, vps: int,
+                        capacity: int, axis_sizes: Sequence[int],
+                        schedule: str, stats: ExchangeStats):
+    """Sharded LOCALPREPROCESSING (Section IV-A) with O(edges/shard) peak.
+
+    Each shard contracts in its bucketed vertex space (``_prep_space``):
+    the distinct source ids of its sorted edge slice, indexed by run
+    rank.  A shared vertex stays a root; a component contracts only if
+    its global ``(w, eid)``-minimum edge is provably local, so the
+    contracted edges are a subset of the unique MSF.  The reference runs
+    one ``while_loop`` per shard, each with its own stop condition; here
+    the stacked rounds run until every shard has stopped, which changes
+    nothing, since a stopped shard is a fixed point of ``_prep_round``.
+
+    Returns (lab [p, vps], pre_mst [p, cap] bool, dead0 [p, cap] bool,
+    overflow, stats); the changed labels reach their owners in one
+    routed ``(vid, root)`` scatter of capacity ``min(capacity, cap)``.
+    """
+    p, cap = u.shape
+    dev = u.device
+    sp = _prep_space(u, v, w, eid, valid, n)
+    lab = torch.arange(cap, dtype=torch.int32, device=dev).repeat(p, 1)
+    mst = torch.zeros((p, cap), dtype=torch.int32, device=dev)
+    go, r = True, 0
+    while go and r < _doubling_iters(sp.nloc) + 1:
+        lab, mst, eligible = _prep_round(sp, lab, mst)
+        go = bool(eligible.any())
+        r += 1
+
+    # --- one routed (vid, root) scatter to the owners ------------------
+    root_slot = _take(_take(sp.uvals, lab), sp.du)  # root of each source
+    changed = sp.head & valid & (root_slot != u)
+    ex = routed_exchange((u, root_slot), u // vps, changed,
+                         min(capacity, cap), axis_sizes, schedule,
+                         stats=stats, site="prep")
+    base = _bases(p, vps, dev)
+    vid = base + torch.arange(vps, dtype=torch.int32, device=dev)
+    ok = ex.recv_ok.reshape(p, -1)
+    off = torch.where(ok, ex.recv[0].reshape(p, -1) - base, vps)
+    lab_out = torch.cat([vid, torch.full((p, 1), -1, dtype=torch.int32,
+                                         device=dev)], 1)
+    lab_out = lab_out.scatter_(1, off.long(), ex.recv[1].reshape(p, -1))
+    same = sp.v_found & (_take(lab, sp.du) == _take(lab, sp.dv))
+    dead0 = (u == v) | same  # locally-internal edges incl. self-loops
+    return (lab_out[:, :vps].contiguous(), mst.bool(), dead0, ex.overflow,
+            ex.stats)
+
+
+# --------------------------------------------------------------------------
+# MINEDGES and CONTRACT
+# --------------------------------------------------------------------------
 
 def _owner_scatter_min(comp, wc, ec, oc, okc, base, vps: int,
                        use_pallas: bool = False):
@@ -131,8 +415,8 @@ def _owner_scatter_min(comp, wc, ec, oc, okc, base, vps: int,
                                  device=dev)], dim=1)
     emin = torch.cat([et, torch.full((p, 1), _ESENT, dtype=torch.int32,
                                      device=dev)], dim=1)
-    at_min = okc & (wc == _gather_rows(wmin, off))
-    is_win = at_min & (ec == _gather_rows(emin, off))
+    at_min = okc & (wc == _take(wmin, off))
+    is_win = at_min & (ec == _take(emin, off))
     return et < _ESENT, pt, is_win, off
 
 
@@ -184,19 +468,86 @@ def _sharded_minedges(ru, rv, wk, eid, alive, vps: int, capacity: int,
     return has, other, win, ex_u.overflow + ex_v.overflow, st
 
 
+def _sharded_minedges_src(ru, rv, wk, eid, alive, runs: Runs, vps: int,
+                          capacity: int, axis_sizes: Sequence[int],
+                          schedule: str, stats: ExchangeStats,
+                          use_pallas: bool = False):
+    """Owner-computes MINEDGES, src-only variant with per-run candidate
+    aggregation.
+
+    Both directed copies of every edge exist, so the owner of component
+    ``c`` already receives every edge incident to ``c`` through the
+    ``ru``-keyed exchange alone.  Candidates are first combined per
+    source run (the edge slice is sorted by source, so a run shares its
+    source component): each alive run ships its local ``(w, eid)``-argmin,
+    and min-of-mins keeps the chosen edge set exact.
+
+    With ``use_pallas`` the combine is one K1 launch over the ``[p, L]``
+    rows with ``idx = run_id`` (non-decreasing), ``size = L`` and the
+    payloads ``rv`` (the chosen other endpoint component) and ``ru``
+    (the run's own component, constant within the run); otherwise the
+    plain scatter passes of the reference's comparator.  Dead runs come
+    back ``(inf, ESENT, -1, -1)`` both ways.
+
+    The confirmation is deferred: the caller replies through the
+    returned ``ex`` once the contraction's first lookup has shown which
+    winners are the larger side of a 2-cycle.  Returns (has [p, vps],
+    other [p, vps], is_win [p, F], off [p, F], ex, loc_win [p, L] — the
+    run's argmin slot, head_idx [p, L] — each slot's run head).
+    """
+    p, L = ru.shape
+    base = _bases(p, vps, ru.device)
+    head, head_idx, run_id = runs
+    if use_pallas:
+        wtbl, etbl, otbl, ctbl = scatter_min_tables(
+            run_id, wk, eid, rv, ru, alive, L, use_kernel=True)
+        wrun = _take(wtbl.to(wk.dtype), run_id)
+        at_min = alive & (wk == wrun)
+        erun = _take(etbl, run_id)
+        loc_win = at_min & (eid == erun)
+        send = head & torch.isfinite(wrun)
+        comp_c = _take(ctbl, run_id)
+        payload = (comp_c, wrun, erun, _take(otbl, run_id))
+    else:
+        wtbl = _scatter_reduce(L, float("inf"), run_id, wk, "amin")
+        at_min = alive & (wk == _take(wtbl, run_id))
+        etbl = _scatter_reduce(L, _ESENT, run_id,
+                               torch.where(at_min, eid, _ESENT), "amin")
+        loc_win = at_min & (eid == _take(etbl, run_id))
+        otbl = _scatter_reduce(L, -1, run_id, torch.where(loc_win, rv, -1),
+                               "amax")
+        ctbl = _scatter_reduce(L, -1, run_id, torch.where(alive, ru, -1),
+                               "amax")
+        send = head & _take(_scatter_any(alive, run_id, L), run_id)
+        comp_c = _take(ctbl, run_id)
+        payload = (comp_c, _take(wtbl, run_id), _take(etbl, run_id),
+                   _take(otbl, run_id))
+    ex = routed_exchange(payload, comp_c // vps, send, capacity, axis_sizes,
+                         schedule, stats=stats, site="minedges")
+    comp, w_, e_, o_ = (x.reshape(p, -1) for x in ex.recv)
+    okc = ex.recv_ok.reshape(p, -1)
+    has, other, is_win, off = _owner_scatter_min(comp, w_, e_, o_, okc,
+                                                 base, vps, use_pallas)
+    return has, other, is_win, off, ex, loc_win, head_idx
+
+
 def _sharded_contract(has, other, n: int, vps: int, capacity: int,
                       axis_sizes: Sequence[int], schedule: str,
-                      stats: ExchangeStats):
+                      adaptive: bool, stats: ExchangeStats):
     """Pointer doubling over the sharded parent array (request/reply).
 
     Roots with a chosen edge point at the other endpoint's component,
     everything else at itself; the 2-cycle of mutually chosen components
-    keeps the smaller id as root; then the fixed schedule of
-    ``_doubling_iters(n)`` doubling steps, one routed lookup each.  Only
-    ``parent[x] != x`` rows enter the exchange.
+    keeps the smaller id as root.  Then doubling steps of one routed
+    lookup each: ``_doubling_iters(n)`` of them, or with ``adaptive``
+    until a step changes no parent, read on the host one flag a step
+    (the reference's in-program ``while_loop`` on a psummed flag), and
+    capped at ``_doubling_iters(n)`` either way.  Only ``parent[x] != x``
+    rows enter the exchange.
 
     Returns (parent [p, vps] fully contracted, keep [p, vps] — winner
-    and not the larger side of a 2-cycle, overflow, stats).
+    and not the larger side of a 2-cycle, the exact-once marking of
+    src-only MINEDGES, overflow, stats).
     """
     p = has.shape[0]
     vid = _bases(p, vps, has.device) + torch.arange(
@@ -211,71 +562,143 @@ def _sharded_contract(has, other, n: int, vps: int, capacity: int,
         return torch.where(req, nxt, par), o, st
 
     gp, ov, stats = hop(parent0, stats)
+    # a 2-cycle (mutually chosen components) necessarily chose the SAME
+    # edge, so `keep` marks every winning pair on exactly one owner
     mutual = gp == vid
     keep = has & (~mutual | (vid < parent0))
     parent = torch.where(mutual & (vid < parent0), vid, parent0)
     for _ in range(_doubling_iters(n)):
-        parent, o, stats = hop(parent, stats)
+        nxt, o, stats = hop(parent, stats)
         ov = ov + o
+        done = adaptive and not bool((nxt != parent).any())
+        parent = nxt
+        if done:
+            break
     return parent, keep, ov, stats
 
 
-def _round_body(u, v, w, eid, live0, lab, mst, dead, n: int, vps: int,
-                axis_sizes: Sequence[int], cap_edge: int, cap_label: int,
-                cap_lookup: int, cap_contract: int, schedule: str,
+def _round_body(u, v, w, eid, live0, lab, mst, dead, runs_u, runs_v, vidx,
+                settled, n: int, vps: int, axis_sizes: Sequence[int],
+                cap_edge: int, cap_label: int, cap_lookup: int,
+                cap_contract: int, schedule: str, coalesce: bool,
+                src_only: bool, adaptive: bool, relabel_skip: bool,
                 pallas_minedges: bool, stats: ExchangeStats):
-    """One MINEDGES → CONTRACT → RELABEL round over 1D-sharded labels,
-    endpoints resolved by one routed lookup per slot.
+    """One MINEDGES → CONTRACT → RELABEL round over 1D-sharded labels.
 
-    Returns (lab, mst, dead, go, overflow_delta, stats); ``go`` is a
-    0-dim bool tensor (some component chose an edge).
+    Shared by the fused flat-capacity engine and the shrinking driver,
+    which differ only in the capacities each round gets.  Endpoints are
+    resolved per slot, or with ``coalesce`` per equal-vid run (the u
+    column in slot order, the v column through ``vidx``, or in slot
+    order through ``runs_v`` when the v-sorted index is off).
+
+    Returns (lab, mst, dead, settled, go, overflow_delta, stats); ``go``
+    is a 0-dim bool tensor (some component chose an edge).
     """
     live = live0 & ~dead
-    ru, ok_u, o1, st = _sharded_lookup(lab, u, live, vps, cap_lookup,
-                                       axis_sizes, schedule, stats,
-                                       count_misses=True)
-    rv, ok_v, o2, st = _sharded_lookup(lab, v, live, vps, cap_lookup,
-                                       axis_sizes, schedule, st,
-                                       count_misses=True)
+    if coalesce and runs_u is not None:
+        ru, ok_u, o1, st = _coalesced_lookup(lab, u, runs_u, live, vps,
+                                             cap_lookup, axis_sizes,
+                                             schedule, stats)
+    else:
+        ru, ok_u, o1, st = _sharded_lookup(lab, u, live, vps, cap_lookup,
+                                           axis_sizes, schedule, stats,
+                                           count_misses=True)
+    if coalesce and vidx is not None:
+        rv, ok_v, o2, st = _vsorted_lookup(lab, vidx, live, vps, cap_lookup,
+                                           axis_sizes, schedule, st)
+    elif coalesce and runs_v is not None:
+        rv, ok_v, o2, st = _coalesced_lookup(lab, v, runs_v, live, vps,
+                                             cap_lookup, axis_sizes,
+                                             schedule, st)
+    else:
+        rv, ok_v, o2, st = _sharded_lookup(lab, v, live, vps, cap_lookup,
+                                           axis_sizes, schedule, st,
+                                           count_misses=True)
     looked = ok_u & ok_v
     # dead-edge retirement: same component now => same forever
     dead = dead | (looked & (ru == rv))
     alive = looked & (ru != rv) & live
     wk = torch.where(alive, w, float("inf"))
-    has, other, win, o3, st = _sharded_minedges(
-        ru, rv, wk, eid, alive, vps, cap_edge, axis_sizes, schedule, st,
-        pallas_minedges)
-    # both directed copies are confirmed; mark only the canonical one so
-    # the global mask is exact-once
-    mst = mst | (win & (u < v))
-    parent, _, o4, st = _sharded_contract(has, other, n, vps, cap_contract,
-                                          axis_sizes, schedule, st)
-    lab, _, o5, st = _sharded_lookup(
-        parent, lab, torch.ones_like(lab, dtype=torch.bool), vps,
-        cap_label, axis_sizes, schedule, st, site="relabel")
+    if src_only:
+        has, other, is_win, off, ex, loc_win, head_idx = \
+            _sharded_minedges_src(ru, rv, wk, eid, alive, runs_u, vps,
+                                  cap_edge, axis_sizes, schedule, st,
+                                  pallas_minedges)
+        parent, keep, o4, st = _sharded_contract(
+            has, other, n, vps, cap_contract, axis_sizes, schedule,
+            adaptive, ex.stats)
+        keep_ext = torch.cat([keep, torch.zeros_like(keep[:, :1])], 1)
+        confirm = (is_win & _take(keep_ext, off)).reshape(
+            ex.recv_ok.shape)
+        win, st = reply(ex, confirm, axis_sizes, schedule, stats=st)
+        # the run's confirmation lands on its argmin slot only: exactly
+        # one directed slot per MSF edge
+        mst = mst | (loc_win & _take(win & ex.sent_ok, head_idx))
+        o3 = ex.overflow
+    else:
+        has, other, win, o3, st = _sharded_minedges(
+            ru, rv, wk, eid, alive, vps, cap_edge, axis_sizes, schedule, st,
+            pallas_minedges)
+        # both directed copies are confirmed; mark only the canonical one
+        # so the global mask is exact-once
+        mst = mst | (win & (u < v))
+        parent, _, o4, st = _sharded_contract(
+            has, other, n, vps, cap_contract, axis_sizes, schedule,
+            adaptive, st)
+    if relabel_skip:
+        lab, settled, o5, st = _relabel_lookup(
+            parent, has, lab, settled, vps, cap_label, axis_sizes, schedule,
+            st)
+    else:
+        lab, _, o5, st = _sharded_lookup(
+            parent, lab, torch.ones_like(lab, dtype=torch.bool), vps,
+            cap_label, axis_sizes, schedule, st, site="relabel")
     go = has.any()
-    return lab, mst, dead, go, o1 + o2 + o3 + o4 + o5, st
+    return lab, mst, dead, settled, go, o1 + o2 + o3 + o4 + o5, st
 
 
-def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead, n: int, vps: int,
-                    axis_sizes: Sequence[int], active: Optional[torch.Tensor],
-                    max_rounds: int, cap_edge: int, cap_label: int,
-                    cap_lookup: int, overflow, stats: ExchangeStats, rounds,
-                    schedule: str, pallas_minedges: bool):
+class _Static(NamedTuple):
+    """Per-solve run structure the round body reads (None where its lever
+    is off): source runs, slot-order v runs, the v-sorted index."""
+    runs_u: Optional[Runs]
+    runs_v: Optional[Runs]
+    vidx: Optional[VIndex]
+
+
+def _static_runs(u, v, valid, n: int, coalesce: bool, src_only: bool,
+                 vsorted: bool, vperm: Optional[torch.Tensor] = None
+                 ) -> _Static:
+    return _Static(
+        run_metadata(u) if (coalesce or src_only) else None,
+        run_metadata(v) if (coalesce and not vsorted) else None,
+        _build_v_index(v, valid, n, perm=vperm) if (coalesce and vsorted)
+        else None)
+
+
+def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead, static: _Static,
+                    n: int, vps: int, axis_sizes: Sequence[int],
+                    active: Optional[torch.Tensor], max_rounds: int,
+                    cap_edge: int, cap_label: int, cap_lookup: int, overflow,
+                    stats: ExchangeStats, rounds, schedule: str,
+                    coalesce: bool, src_only: bool, adaptive: bool,
+                    relabel_skip: bool, pallas_minedges: bool):
     """Borůvka rounds with 1D-sharded labels (flat capacities).
 
     ``active`` optionally restricts the edge set (the filter levels);
-    ``dead`` persists across rounds and levels (labels only coarsen).
-    Runs until no component chooses an edge or ``max_rounds``.
+    ``dead`` persists across rounds and levels (labels only coarsen),
+    ``settled`` is per level (a new weight window revives edges).  Runs
+    until no component chooses an edge or ``max_rounds``.
     """
     live0 = valid if active is None else (valid & active)
+    settled = torch.zeros(lab.shape, dtype=torch.bool, device=lab.device)
     r = 0
     go = True
     while go and r < max_rounds:
-        lab, mst, dead, go_t, o, stats = _round_body(
-            u, v, w, eid, live0, lab, mst, dead, n, vps, axis_sizes,
-            cap_edge, cap_label, cap_lookup, cap_label, schedule,
-            pallas_minedges, stats)
+        lab, mst, dead, settled, go_t, o, stats = _round_body(
+            u, v, w, eid, live0, lab, mst, dead, static.runs_u,
+            static.runs_v, static.vidx, settled, n, vps, axis_sizes,
+            cap_edge, cap_label, cap_lookup, cap_label, schedule, coalesce,
+            src_only, adaptive, relabel_skip, pallas_minedges, stats)
         overflow = overflow + o
         r += 1
         go = bool(go_t)
@@ -286,8 +709,12 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
                       axis_sizes: Sequence[int], algorithm: str,
                       num_levels: int, max_rounds: Optional[int],
                       cap_edge: int, cap_label: int, cap_lookup: int,
-                      schedule: str, pallas_minedges: bool):
-    """The whole solve over stacked shards (``u/v/w/eid`` are [p, cap]).
+                      schedule: str, local_preprocessing: bool,
+                      coalesce: bool, src_only: bool, adaptive: bool,
+                      relabel_skip: bool, vsorted: bool,
+                      pallas_minedges: bool):
+    """The fused flat-capacity solve over stacked shards (``u/v/w/eid``
+    are [p, cap]).
 
     Returns (mask [p, cap], weight, count, lab [p, vps], overflow,
     CommStats) — the reference's per-shard program, all shards at once.
@@ -295,23 +722,32 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
     p = u.shape[0]
     dev = u.device
     valid = torch.isfinite(w)
-    lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
-                                             device=dev)
-    mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     stats = ExchangeStats.zeros(dev)
     rounds = 0
     mr = (math.ceil(math.log2(max(n, 2))) + 1) if max_rounds is None \
         else max_rounds
-    dead = u == v  # self-loops can never be MSF candidates
+    if local_preprocessing:
+        lab, pre_mst, dead, ovf, stats = _sharded_preprocess(
+            u, v, w, eid, valid, n, vps, cap_label, axis_sizes, schedule,
+            stats)
+        overflow = overflow + ovf
+    else:
+        lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
+                                                 device=dev)
+        pre_mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+        dead = u == v  # self-loops can never be MSF candidates
+    mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+    static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted)
 
     common = dict(n=n, vps=vps, axis_sizes=axis_sizes, max_rounds=mr,
                   cap_edge=cap_edge, cap_label=cap_label,
                   cap_lookup=cap_lookup, schedule=schedule,
-                  pallas_minedges=pallas_minedges)
+                  coalesce=coalesce, src_only=src_only, adaptive=adaptive,
+                  relabel_skip=relabel_skip, pallas_minedges=pallas_minedges)
     if algorithm == "boruvka":
         lab, mst, dead, overflow, stats, rounds = _sharded_rounds(
-            u, v, w, eid, valid, lab, mst, dead, active=None,
+            u, v, w, eid, valid, lab, mst, dead, static, active=None,
             overflow=overflow, stats=stats, rounds=rounds, **common)
     elif algorithm == "filter_boruvka":
         pivots = _weight_pivots(w, valid, num_levels)
@@ -321,26 +757,454 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
                 float("inf"), dtype=torch.float32, device=dev)
             active = (w > lo) & (w <= hi)
             lab, mst, dead, overflow, stats, rounds = _sharded_rounds(
-                u, v, w, eid, valid, lab, mst, dead, active=active,
+                u, v, w, eid, valid, lab, mst, dead, static, active=active,
                 overflow=overflow, stats=stats, rounds=rounds, **common)
             lo = hi
     else:
         raise ValueError(algorithm)
 
-    weight = psum_f32(reference_order_sum(torch.where(mst, w, 0.0)))
-    count = mst.sum(dtype=torch.int32)
+    full_mask = mst | pre_mst
+    weight = psum_f32(reference_order_sum(torch.where(full_mask, w, 0.0)))
+    count = full_mask.sum(dtype=torch.int32)
     comm = CommStats(stats.calls, stats.items, stats.bytes,
                      torch.tensor(rounds, dtype=torch.int32, device=dev),
                      stats.hits, stats.misses, stats.pushed, stats.injected)
-    return mst, weight, count, lab, overflow, comm
+    return full_mask, weight, count, lab, overflow, comm
 
 
-def _unported(lever: str, item: str = _LEVERS_ITEM):
+# --------------------------------------------------------------------------
+# host-side capacity bounds (numpy; the shrinking driver's per-round sizes)
+# --------------------------------------------------------------------------
+
+def _host_weight_pivots(w_h: np.ndarray, valid_h: np.ndarray,
+                        num_levels: int, p: int, cap: int) -> np.ndarray:
+    """Host replica of ``_weight_pivots`` (same per-shard stride-64
+    sample, gather order and quantile positions), so the shrinking
+    driver buckets the filter levels exactly like the fused engine."""
+    s = min(64, cap)
+    idx = (np.arange(s) * cap) // s
+    samp = []
+    for sh in range(p):
+        ws = w_h[sh * cap:(sh + 1) * cap]
+        vs = valid_h[sh * cap:(sh + 1) * cap]
+        samp.append(np.where(vs[idx], ws[idx], np.inf))
+    all_samp = np.sort(np.concatenate(samp).astype(np.float32))
+    nfin = max(int(np.isfinite(all_samp).sum()), 1)
+    pos = (np.arange(1, num_levels) * nfin) // num_levels
+    return all_samp[pos]
+
+
+def minedges_buffer_bytes(p: int, capacity: int, hops: int,
+                          src_only: bool) -> int:
+    """Static buffer bytes one MINEDGES phase ships at ``capacity``: four
+    ``[p, C]`` payload buffers (i32/f32/i32/i32) and the 1-byte validity
+    mask per exchange and hop, one ``[p, C]`` bool confirmation buffer
+    per reply; src-only pays that once, the 2-exchange baseline twice."""
+    per_exchange = (4 * 4 + 1) * p * capacity * hops
+    per_reply = 1 * p * capacity * hops
+    k = 1 if src_only else 2
+    return k * (per_exchange + per_reply)
+
+
+def _per_pair_max(shard: np.ndarray, owner: np.ndarray, p: int) -> int:
+    """Max count over (source shard, destination owner) pairs."""
+    if owner.size == 0:
+        return 0
+    return int(np.bincount(shard * p + owner, minlength=p * p).max())
+
+
+def _host_run_starts(a: np.ndarray, num_shards: int) -> np.ndarray:
+    """First slots of the per-shard contiguous equal-value runs of a
+    shard-major array (a run starts at every shard start): the host
+    mirror of ``run_metadata``'s heads, the reference's
+    ``_host_run_heads`` as positions."""
+    a2 = a.reshape(num_shards, -1)
+    head = np.ones(a2.shape, bool)
+    head[:, 1:] = a2[:, 1:] != a2[:, :-1]
+    return np.flatnonzero(head)
+
+
+def _live_heads(starts: np.ndarray, mask: Optional[np.ndarray]
+                ) -> np.ndarray:
+    """The starts of the runs (starting at ``starts``) that hold a slot
+    of ``mask``, every start where ``mask`` is None: the reference's
+    ``heads & run_any[rid]``, one ``logical_or.reduceat`` over the runs
+    in place of a ``bincount`` over the slots."""
+    if mask is None:
+        return starts
+    return starts[np.logical_or.reduceat(mask, starts)]
+
+
+def _minedges_capacity_bound(ru: np.ndarray, rv: np.ndarray,
+                             alive: np.ndarray, shard: np.ndarray,
+                             cand: np.ndarray, p: int, vps: int,
+                             src_only: bool) -> int:
+    """Exact MINEDGES candidate-exchange capacity for the coming round:
+    the most candidates any shard sends any owner.  In src-only mode a
+    candidate is an alive source run, given by its first slot in
+    ``cand``, keyed by its component's owner; otherwise every alive slot
+    under both endpoint keys.  0 when no candidate exists (the round
+    could choose nothing)."""
+    if not cand.size:
+        return 0
+    if src_only:
+        return _per_pair_max(shard[cand], ru[cand] // vps, p)
+    sa = shard[alive]
+    return max(_per_pair_max(sa, ru[alive] // vps, p),
+               _per_pair_max(sa, rv[alive] // vps, p))
+
+
+def _endpoint_lookup_bound(u_h: np.ndarray, v_h: np.ndarray,
+                           live_h: np.ndarray, shard: np.ndarray,
+                           p: int, vps: int) -> int:
+    """Exact per-(shard, owner) bound for the uncoalesced endpoint
+    lookups: every live slot requests both its endpoints' owners."""
+    sl = shard[live_h]
+    if sl.size == 0:
+        return 1
+    return max(1, _per_pair_max(sl, u_h[live_h] // vps, p),
+               _per_pair_max(sl, v_h[live_h] // vps, p))
+
+
+def _relabel_capacity_bound(lab_h: np.ndarray, settled_h: np.ndarray,
+                            p: int, vps: int) -> int:
+    """Exact per-(shard, owner) RELABEL request count under the
+    settled-vertex skip: vertex x asks ``owner(lab[x])`` iff it is not
+    settled (``settled_h`` mirrors the device mask's update rule)."""
+    x = np.nonzero(~settled_h)[0]
+    if x.size == 0:
+        return 1
+    return max(1, _per_pair_max(x // vps, lab_h[x] // vps, p))
+
+
+def _contract_capacity_bound(choosing: np.ndarray, rv: np.ndarray,
+                             alive: np.ndarray, vps: int) -> int:
+    """Max per-owner count of distinct components incident to candidate
+    edges: only a component with a chosen edge has a non-self parent, so
+    this bounds the CONTRACT exchange rows exactly.  ``choosing`` marks
+    the source components of the alive slots; the targets' are marked
+    on top (a table of marks where the reference takes ``np.unique``)."""
+    if not alive.any():
+        return 1
+    comp = choosing.copy()
+    comp[rv[alive]] = True
+    return max(1, int(np.bincount(np.flatnonzero(comp) // vps).max()))
+
+
+class _HostGraph:
+    """numpy copies of a layout's slots and their static run structure,
+    made once a solve for the host bounds.  The v-sorted permutation is
+    sorted on the graph's device: any stable sort of the same keys gives
+    the reference's ``_host_v_perm``."""
+
+    def __init__(self, graph: DistGraph, p: int, n: int):
+        self.graph = graph
+        self.p, self.n = p, n
+        self.cap = graph.cap_total // p
+        self.vps = vertices_per_shard(n, p)
+        self.u = graph.u.cpu().numpy()
+        self.v = graph.v.cpu().numpy()
+        self.w = graph.w.cpu().numpy()
+        self.valid = np.isfinite(self.w)
+        self.shard = np.repeat(np.arange(p), self.cap)
+        self.u_starts = _host_run_starts(self.u, p)
+
+    @functools.cached_property
+    def vperm(self) -> torch.Tensor:
+        """``[p, cap]`` int32 on the graph's device: each shard's stable
+        sort of ``where(valid, v, n)``."""
+        g = self.graph
+        key = torch.where(torch.isfinite(g.w), g.v, self.n).view(self.p,
+                                                                 self.cap)
+        return torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+
+    @functools.cached_property
+    def vindex(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(perm [p * cap] int32 — local indices per shard, skey [p * cap]
+        int64 — the sorted keys, padding n at each shard's tail), the
+        reference's ``_host_v_perm``."""
+        perm = self.vperm.cpu().numpy()
+        key = np.where(self.valid, self.v, self.n).astype(np.int64)
+        skey = np.take_along_axis(key.reshape(self.p, self.cap), perm,
+                                  axis=1)
+        return perm.reshape(-1), skey.reshape(-1)
+
+    @functools.cached_property
+    def v_sorted_runs(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(flat slot of each v-sorted position, run starts over the
+        sorted keys, the starts whose key is a real vertex)."""
+        perm, skey = self.vindex
+        at = (perm.reshape(self.p, self.cap)
+              + (np.arange(self.p) * self.cap)[:, None]).reshape(-1)
+        starts = _host_run_starts(skey, self.p)
+        return at, starts, skey[starts] < self.n
+
+    @functools.cached_property
+    def v_slot_starts(self) -> np.ndarray:
+        """Run starts of the v column in slot order."""
+        return _host_run_starts(self.v, self.p)
+
+
+def _lookup_bound(hg: _HostGraph, live: Optional[np.ndarray],
+                  vsorted: bool) -> int:
+    """``default_lookup_capacity`` over a ``_HostGraph``'s cached runs:
+    per (shard, owner), the live u runs in slot order and the live v
+    runs, through the v-sorted index or in slot order."""
+    p, vps, shard = hg.p, hg.vps, hg.shard
+    hu = _live_heads(hg.u_starts, live)
+    mx = max(1, _per_pair_max(shard[hu], hg.u[hu] // vps, p))
+    if not vsorted:
+        hv = _live_heads(hg.v_slot_starts, live)
+        return max(mx, _per_pair_max(shard[hv], hg.v[hv] // vps, p))
+    at, starts, real = hg.v_sorted_runs
+    if live is None:
+        hv = starts[real]
+    else:
+        hv = starts[real & np.logical_or.reduceat(live[at], starts)]
+    skey = hg.vindex[1]
+    return max(mx, _per_pair_max(shard[hv], skey[hv] // vps, p))
+
+
+def default_lookup_capacity(graph: DistGraph, num_shards: int, n: int,
+                            alive: Optional[np.ndarray] = None,
+                            vsorted: bool = True,
+                            vindex: Optional[Tuple[np.ndarray,
+                                                   np.ndarray]] = None
+                            ) -> int:
+    """Exact-by-construction capacity for the coalesced endpoint lookups.
+
+    Counts, per (shard, owner) pair, the coalesced requests each
+    endpoint column can send: the u column's equal-value runs in slot
+    order, and the v column's through the v-sorted index (one request
+    per distinct v per shard), or in slot order with ``vsorted=False``.
+    With ``alive`` (a [p * cap] bool mask of live slots) only runs
+    holding a live slot count.  ``vindex`` supplies a precomputed
+    v-sorted index, ``(perm, skey)`` as the reference's ``_host_v_perm``
+    returns it.
+    """
+    hg = _HostGraph(graph, num_shards, n)
+    if vindex is not None:
+        hg.vindex = vindex
+    return _lookup_bound(hg, None if alive is None else np.asarray(alive),
+                         vsorted)
+
+
+class _RoundCaps(NamedTuple):
+    """One round's host-bounded capacities (ladder rungs) and what the
+    driver keeps of the bounds."""
+    bound_e: int
+    cap_edge: int
+    cap_lookup: int
+    cap_contract: int
+    cap_relabel: int
+    choosing: np.ndarray  # [p * vps] bool: components with a candidate
+
+
+def _host_round_caps(hg: _HostGraph, lab_h: np.ndarray, live_h: np.ndarray,
+                     settled_h: np.ndarray, ce_full: int, cl: int,
+                     lk_full: int, coalesce: bool, src_only: bool,
+                     relabel_skip: bool, vsorted: bool) -> _RoundCaps:
+    """The coming round's exact bounds from the host label table and live
+    mask, each snapped up onto its ``shrink_schedule`` ladder, and the
+    components that have a candidate (``choosing``)."""
+    p, vps, shard = hg.p, hg.vps, hg.shard
+    ru_h = lab_h[hg.u]
+    rv_h = lab_h[hg.v]
+    alive_h = live_h & (ru_h != rv_h)
+    cand = _live_heads(hg.u_starts, alive_h)  # alive source runs
+    choosing = np.zeros(p * vps, bool)
+    choosing[ru_h[cand]] = True  # ru is constant along a source run
+    bound_e = _minedges_capacity_bound(ru_h, rv_h, alive_h, shard, cand, p,
+                                       vps, src_only)
+    if coalesce:
+        lk = _lookup_bound(hg, live_h, vsorted)
+    else:
+        lk = _endpoint_lookup_bound(hg.u, hg.v, live_h, shard, p, vps)
+    rl = quantize_capacity(_relabel_capacity_bound(lab_h, settled_h, p,
+                                                   vps), cl) \
+        if relabel_skip else cl
+    return _RoundCaps(
+        bound_e, quantize_capacity(bound_e, ce_full),
+        quantize_capacity(lk, lk_full),
+        quantize_capacity(_contract_capacity_bound(choosing, rv_h, alive_h,
+                                                   vps), cl),
+        rl, choosing)
+
+
+# --------------------------------------------------------------------------
+# shrinking-capacity driver: one round at a time, host-bounded capacities
+# --------------------------------------------------------------------------
+
+def _stat_values(st: ExchangeStats) -> np.ndarray:
+    """The 8 counters of one step as float64 (one device sync)."""
+    return torch.stack([x.double() for x in st]).cpu().numpy()
+
+
+def _sharded_round_step(u, v, w, eid, static: _Static, lab, mst, dead,
+                        settled, lo: float, hi: float, n: int, vps: int,
+                        axis_sizes: Sequence[int], caps: _RoundCaps,
+                        schedule: str, coalesce: bool, src_only: bool,
+                        adaptive: bool, relabel_skip: bool,
+                        pallas_minedges: bool):
+    """One driver round at its own capacities, counted from zero (the
+    reference's ``_sharded_round_shard_fn``).  Returns (lab, mst, dead,
+    settled, go, overflow, stats)."""
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=w.device)
+    hi_t = torch.tensor(hi, dtype=torch.float32, device=w.device)
+    live0 = torch.isfinite(w) & (w > lo_t) & (w <= hi_t)
+    return _round_body(
+        u, v, w, eid, live0, lab, mst, dead, static.runs_u, static.runs_v,
+        static.vidx, settled, n, vps, axis_sizes, caps.cap_edge,
+        caps.cap_relabel, caps.cap_lookup, caps.cap_contract, schedule,
+        coalesce, src_only, adaptive, relabel_skip, pallas_minedges,
+        ExchangeStats.zeros(u.device))
+
+
+def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
+                            p: int, algorithm: str, num_levels: int,
+                            max_rounds: Optional[int], ce_full: int,
+                            cl: int, lk_full: int, schedule: str,
+                            local_preprocessing: bool, coalesce: bool,
+                            src_only: bool, adaptive: bool,
+                            relabel_skip: bool, vsorted: bool,
+                            round_trace: Optional[List[dict]],
+                            pallas_minedges: bool):
+    """Host-driven rounds with per-round shrinking capacities.
+
+    Runs the same ``_round_body`` as the fused engine one round at a
+    time, sizing each round's exchanges from the exact host bounds of
+    ``_host_round_caps`` on the measured dead mask and label table,
+    snapped up onto the ``shrink_schedule`` ladder.  At overflow 0 the
+    result equals the flat engine's; a level whose MINEDGES bound is 0
+    skips its trailing empty round, so ``rounds`` counts only the rounds
+    executed.  A round with overflow ends the solve (the labels are
+    garbage by contract).  ``round_trace`` gets one dict per round,
+    field for field the reference's.  Returns the engine's 6-tuple on
+    the graph's device; the weight is the float64 host sum of the
+    masked slots, rounded to float32, as the reference's driver does.
+    """
+    axis_sizes = (p,)
+    vps, cap = hg.vps, hg.cap
+    dev = graph.u.device
+    mr = (math.ceil(math.log2(max(n, 2))) + 1) if max_rounds is None \
+        else max_rounds
+    hops = _hops(axis_sizes, schedule)
+    u, v, w, eid = (x.view(p, cap) for x in graph)
+    valid = torch.isfinite(w)
+
+    overflow = 0
+    acc = np.zeros(8, np.float64)
+    if local_preprocessing:
+        lab, pre_mst, dead, ovf, st = _sharded_preprocess(
+            u, v, w, eid, valid, n, vps, cl, axis_sizes, schedule,
+            ExchangeStats.zeros(dev))
+        overflow += int(ovf)
+        acc += _stat_values(st)
+    else:
+        lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
+                                                 device=dev)
+        pre_mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
+        dead = u == v
+    mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
+    dead_h = dead.cpu().numpy().reshape(-1)
+    static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted,
+                          hg.vperm if (coalesce and vsorted) else None)
+
+    if algorithm == "boruvka":
+        windows = [(-np.inf, np.inf)]
+    elif algorithm == "filter_boruvka":
+        piv = [float(x) for x in _host_weight_pivots(hg.w, hg.valid,
+                                                     num_levels, p, cap)]
+        windows = list(zip([-np.inf] + piv, piv + [np.inf]))
+    else:
+        raise ValueError(algorithm)
+
+    rounds = 0
+    for lvl, (lo, hi) in enumerate(windows):
+        active_h = hg.valid & (hg.w > lo) & (hg.w <= hi)
+        # settled is per level: a new weight window revives edges
+        settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
+        settled_h = np.zeros(p * vps, bool)
+        r = 0
+        while r < mr:
+            if overflow:
+                # an undersized user capacity already dropped items: the
+                # result is unreliable by contract and garbage labels
+                # would poison the host bounds, so stop and report
+                break
+            lab_h = lab.cpu().numpy().reshape(-1)
+            caps = _host_round_caps(hg, lab_h, active_h & ~dead_h,
+                                    settled_h, ce_full, cl, lk_full,
+                                    coalesce, src_only, relabel_skip,
+                                    vsorted)
+            if caps.bound_e == 0:
+                break  # no candidate exists: go would come back False
+            lab, mst, dead, settled, go, ovf, st = _sharded_round_step(
+                u, v, w, eid, static, lab, mst, dead, settled, lo, hi, n,
+                vps, axis_sizes, caps, schedule, coalesce, src_only,
+                adaptive, relabel_skip, pallas_minedges)
+            overflow += int(ovf)
+            stv = _stat_values(st)
+            acc += stv
+            dead_h = dead.cpu().numpy().reshape(-1)
+            if relabel_skip:
+                # the device's rule: a requesting vertex settles iff its
+                # pre-contraction component chose nothing this round
+                settled_h = settled_h | ~caps.choosing[lab_h]
+            rounds += 1
+            r += 1
+            if round_trace is not None:
+                round_trace.append({
+                    "round": rounds, "level": lvl,
+                    "cap_edge": caps.cap_edge,
+                    "cap_lookup": caps.cap_lookup,
+                    "cap_contract": caps.cap_contract,
+                    "cap_relabel": caps.cap_relabel,
+                    "cap_push": 1, "cap_push_col": 0, "cap_push_flat": 0,
+                    "grid_push": False, "ghost": False,
+                    "alive_bound": caps.bound_e,
+                    "minedges_buffer_bytes": minedges_buffer_bytes(
+                        p, caps.cap_edge, hops, src_only),
+                    "a2a_calls": int(stv[0]),
+                    "routed_items": float(stv[1]),
+                    "buffer_bytes": float(stv[2]),
+                    "buffer_slots": float(stv[3]),
+                    "cache_hits": float(stv[4]),
+                    "lookup_items": float(stv[5]),
+                    "pushed_items": float(stv[6]),
+                    "injected_items": float(stv[7]),
+                })
+            if not bool(go):
+                break
+
+    mask_t = (mst | pre_mst).reshape(-1)
+    mask = mask_t.cpu().numpy()
+
+    def put(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    comm = CommStats(put(np.int32(acc[0]), torch.int32),
+                     put(np.float32(acc[1]), torch.float32),
+                     put(np.float32(acc[2]), torch.float32),
+                     put(rounds, torch.int32),
+                     put(np.float32(acc[4]), torch.float32),
+                     put(np.float32(acc[5]), torch.float32),
+                     put(np.float32(acc[6]), torch.float32),
+                     put(np.float32(acc[7]), torch.float32))
+    weight = np.float32(np.sum(hg.w[mask], dtype=np.float64))
+    return (mask_t, put(weight, torch.float32),
+            put(int(mask.sum()), torch.int32), lab.reshape(-1),
+            put(overflow, torch.int32), comm)
+
+
+# --------------------------------------------------------------------------
+# entry point
+# --------------------------------------------------------------------------
+
+def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{lever} is not ported to repro_torch yet ({item}); the flat "
-        "baseline runs with local_preprocessing=False, coalesce=False, "
-        "src_only=False, adaptive_doubling=False, shrink_capacities=False, "
-        "ghost_cache=False, relabel_skip=False")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
+        f"{item})")
 
 
 def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
@@ -376,8 +1240,9 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
     reference takes a mesh.  Returns (mask, weight, count, labels,
     overflow, stats):
 
-      * ``mask`` [p * cap] bool is aligned with ``graph`` slots, the
-        canonical (u < v) directed copy of each MSF edge marked;
+      * ``mask`` [p * cap] bool is aligned with ``graph`` slots, exactly
+        one directed copy of each MSF edge marked (the canonical u < v
+        copy when ``src_only=False``);
       * ``labels`` [p * vps] int32 is the sharded label vector laid out
         shard-major (slice [:n] for the per-vertex view);
       * ``overflow`` counts exchange items that exceeded capacity over
@@ -385,33 +1250,29 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
         default capacities);
       * ``stats`` is a ``CommStats``.
 
-    Ported so far: the flat baseline, i.e. ``local_preprocessing``,
-    ``coalesce``, ``src_only``, ``adaptive_doubling``,
-    ``shrink_capacities``, ``ghost_cache`` and ``relabel_skip`` all
-    False, with ``pallas_minedges`` either way (True routes the
-    owner-side MINEDGES through the K1 CUDA kernel).  Each unported lever
-    raises ``NotImplementedError``, as do ``plan`` and the checkpoint
-    arguments.  ``vsorted_index``, ``ghost_push``, ``push_capacity`` and
-    ``ghost_shard_limit`` only act with the coalescing or ghost levers
-    and are ignored without them, as in the reference; ``round_trace``
-    stays empty on the flat engine, as in the reference's.
+    ``shrink_capacities=True`` runs the host-driven per-round capacity
+    schedule, and ``round_trace`` (a caller list) then receives one dict
+    per round; ``shrink_capacities=False`` runs the fused flat-capacity
+    engine, whose ``round_trace`` stays empty, as in the reference.
+    ``lookup_capacity`` defaults to the exact coalesced-run bound
+    (``default_lookup_capacity``) under ``coalesce``, else to the edge
+    capacity.  ``pallas_minedges=True`` routes both MINEDGES reductions
+    through K1 (the CUDA kernel on the card, its plain version on the
+    CPU).  ``ghost_cache=True`` — the reference's default — raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 8, ghost cache), as
+    do ``plan`` (item 9) and the checkpoint arguments (item 10); pass
+    ``ghost_cache=False``.  ``ghost_push``, ``push_capacity`` and
+    ``ghost_shard_limit`` only act with the cache and are ignored
+    without it, as in the reference.
     """
-    levers = dict(local_preprocessing=local_preprocessing,
-                  coalesce=coalesce, src_only=src_only,
-                  adaptive_doubling=adaptive_doubling,
-                  shrink_capacities=shrink_capacities,
-                  ghost_cache=ghost_cache, relabel_skip=relabel_skip)
-    for lever, on in levers.items():
-        if on:
-            raise _unported(f"{lever}=True")
     if plan is not None:
-        raise _unported("plan replay",
-                        "ROADMAP.md queue 1 item 9 (plans and planned "
-                        "replay)")
+        raise _unported("plan replay", "item 9 (plans and planned replay)")
     if (ckpt_every is not None or ckpt_out is not None
             or resume_from is not None):
-        raise _unported("checkpointing",
-                        "ROADMAP.md queue 1 item 10 (checkpoints)")
+        raise _unported("checkpointing", "item 10 (checkpoints)")
+    if ghost_cache:
+        raise _unported("ghost_cache=True",
+                        "item 8, ghost cache; pass ghost_cache=False")
     p = int(num_shards)
     vps = vertices_per_shard(n, p)
     cap = graph.cap_total // p
@@ -419,7 +1280,20 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
     # yields all-overflow results, which the overflow count reports
     ce = int(cap if edge_capacity is None else edge_capacity)
     cl = int(vps if label_capacity is None else label_capacity)
-    lk = ce if lookup_capacity is None else int(lookup_capacity)
+    hg = _HostGraph(graph, p, n) if (coalesce or shrink_capacities) \
+        else None
+    if lookup_capacity is not None:
+        lk = int(lookup_capacity)
+    elif coalesce:
+        lk = _lookup_bound(hg, None, vsorted_index)
+    else:
+        lk = ce
+    if shrink_capacities:
+        return _shrinking_capacity_msf(
+            graph, hg, n, p, algorithm, num_levels, max_rounds, ce, cl, lk,
+            schedule, local_preprocessing, coalesce, src_only,
+            adaptive_doubling, relabel_skip, vsorted_index, round_trace,
+            pallas_minedges)
 
     def shards(x):
         return x.view(p, cap)
@@ -427,6 +1301,8 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
     mask, weight, count, lab, overflow, comm = _sharded_shard_fn(
         shards(graph.u), shards(graph.v), shards(graph.w),
         shards(graph.eid), n, vps, (p,), algorithm, num_levels,
-        max_rounds, ce, cl, lk, schedule, pallas_minedges)
+        max_rounds, ce, cl, lk, schedule, local_preprocessing, coalesce,
+        src_only, adaptive_doubling, relabel_skip, vsorted_index,
+        pallas_minedges)
     return (mask.reshape(-1), weight, count, lab.reshape(-1), overflow,
             comm)

@@ -20,26 +20,29 @@ from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
 
 def run_metadata(values: torch.Tensor, perm: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Contiguous equal-value run structure of ``values`` ([L]).
+    """Contiguous equal-value run structure of ``values`` ([..., L]).
 
-    Returns (head [L] bool — first slot of its run, head_idx [L] int32 —
-    index of each slot's run head, run_id [L] int32 — dense run number).
-    With ``perm`` (an [L] int32 permutation) the runs are computed over
-    the permuted view ``values[perm]`` and the metadata is in
-    permuted-slot order.  An empty array has no runs.
+    Returns (head [..., L] bool — first slot of its run, head_idx
+    [..., L] int32 — index of each slot's run head, run_id [..., L]
+    int32 — dense run number), each row of the last dimension on its own
+    (the stacked shards of the sharded engine).  With ``perm`` (int
+    permutations of each row, the shape of ``values``) the runs are
+    computed over the permuted view ``values.gather(-1, perm)`` and the
+    metadata is in permuted-slot order.  An empty row has no runs.
     """
     if perm is not None:
-        values = values[perm]
-    L = values.shape[0]
+        values = values.gather(-1, perm.long())
+    L = values.shape[-1]
     dev = values.device
     if L == 0:
-        z = torch.zeros((0,), dtype=torch.int32, device=dev)
-        return torch.zeros((0,), dtype=torch.bool, device=dev), z, z
-    idx = torch.arange(L, dtype=torch.int32, device=dev)
-    head = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
-                      values[1:] != values[:-1]])
-    head_idx = torch.cummax(torch.where(head, idx, 0), 0).values
-    run_id = torch.cumsum(head, 0, dtype=torch.int32) - 1
+        z = torch.zeros(values.shape, dtype=torch.int32, device=dev)
+        return torch.zeros(values.shape, dtype=torch.bool, device=dev), z, z
+    idx = torch.arange(L, dtype=torch.int32, device=dev).expand(
+        values.shape)
+    head = torch.ones(values.shape, dtype=torch.bool, device=dev)
+    head[..., 1:] = values[..., 1:] != values[..., :-1]
+    head_idx = torch.cummax(torch.where(head, idx, 0), -1).values
+    run_id = torch.cumsum(head, -1, dtype=torch.int32) - 1
     return head, head_idx, run_id
 
 

@@ -18,7 +18,10 @@ A CUDA kernel runs only on the card, so what surrounds it is held here:
   slot's final minimum, so the list-driven payload pass is exact.
 
 ``chip_smoke.py`` holds the kernels themselves to the plain versions on
-the card, on the same walls.
+the card, on the same walls.  The tests marked ``cuda`` run the kernels'
+paths on the card, and the sharded lever path through K1 at both of its
+MINEDGES sites (this file imports no JAX, so they run where there is a
+card and no JAX); they skip without one.
 """
 import numpy as np
 import pytest
@@ -518,3 +521,33 @@ def test_cuda_k3_paths_match_plain(m, block, offset):
     exp = segmin_candidates_ref(*args, min(block, max(m, 8)))
     torch.cuda.synchronize()
     assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["boruvka", "filter_boruvka"])
+def test_cuda_lever_path_matches_plain(algorithm):
+    """The sharded engine with every lever but the ghost cache, through
+    K1 on the card at both MINEDGES sites (one launch each a round),
+    equals its plain path in every output and ``round_trace`` row."""
+    _need_gpu()
+    from repro_torch.core.distributed import build_dist_graph
+    from repro_torch.core.distributed_sharded import distributed_sharded_msf
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    from tests.helpers.graph_families import FAMILIES
+    u, v, w, n = FAMILIES["dup_weights"](0)
+    g, _ = build_dist_graph(u, v, w, n, 8, device="cuda")
+    runs = []
+    for pallas in (True, False):
+        trace = []
+        before = owner_scatter_min.launches
+        res = distributed_sharded_msf(g, n, 8, algorithm=algorithm,
+                                      ghost_cache=False,
+                                      pallas_minedges=pallas,
+                                      round_trace=trace)
+        runs.append((res, trace, owner_scatter_min.launches - before))
+    (kern, ktrace, klaunch), (plain, ptrace, plaunch) = runs
+    assert klaunch == 2 * len(ktrace) > 0 and plaunch == 0
+    assert ktrace == ptrace
+    for a, b in zip(tuple(kern[:5]) + tuple(kern[5]),
+                    tuple(plain[:5]) + tuple(plain[5])):
+        assert torch.equal(a, b)

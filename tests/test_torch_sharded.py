@@ -250,18 +250,32 @@ def test_build_dist_graph_layout_matches_reference(family):
 
 
 def test_unported_levers_raise():
+    """The port's boundary: every lever runs but the ghost cache, which
+    raises naming its ROADMAP item (also on the reference's defaults),
+    as do plan replay, the checkpoint arguments and the replicated
+    engine."""
     u, v, w, n = FAMILIES["random"](0)
     g, _ = build_dist_graph(u, v, w, n, P, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    ghost = r"^ghost_cache=True is not ported .*item 8, ghost cache"
+    with pytest.raises(NotImplementedError, match=ghost):
         distributed_sharded_msf(g, n, P)  # the reference's defaults
+    for kw in (dict(OFF, ghost_cache=True),
+               dict(shrink_capacities=False),
+               dict(OFF, ghost_cache=True, ghost_push="flat",
+                    push_capacity=4)):
+        with pytest.raises(NotImplementedError, match=ghost):
+            distributed_sharded_msf(g, n, P, **kw)
     for lever in OFF:
-        with pytest.raises(NotImplementedError,
-                           match=rf"^{lever}=True is not ported"):
-            distributed_sharded_msf(g, n, P, **dict(OFF, **{lever: True}))
+        if lever != "ghost_cache":
+            res = distributed_sharded_msf(g, n, P,
+                                          **dict(OFF, **{lever: True}))
+            assert int(res[4]) == 0, lever
     with pytest.raises(NotImplementedError, match="item 9"):
-        distributed_sharded_msf(g, n, P, plan=object(), **OFF)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        distributed_sharded_msf(g, n, P, ckpt_every=2, **OFF)
+        distributed_sharded_msf(g, n, P, plan=object(), ghost_cache=False)
+    for ckpt in (dict(ckpt_every=2), dict(ckpt_out=[]),
+                 dict(resume_from=object())):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            distributed_sharded_msf(g, n, P, ghost_cache=False, **ckpt)
     edges = from_numpy(u, v, w, n, device=CPU)
     with pytest.raises(NotImplementedError, match="item 6"):
         minimum_spanning_forest(edges, engine="distributed",
