@@ -18,24 +18,32 @@ Phases, each fatal on failure (exit 1):
      rows, size = L, dead lanes in mid-run — each with pay1 aliased to
      pay2 and not), exact equality;
   3. drive the main path: ``minimum_spanning_forest(engine=
-     "distributed_sharded", num_shards=8, pallas_minedges=True,
-     ghost_cache=False)`` — every lever of the reference but the ghost
-     cache, so the shrinking-capacity driver — on GNM n = 2^20,
-     m = 2^23 (seed 0), for both algorithms.  K1 must launch at both
-     MINEDGES sites in every round (the per-run combine and the
-     owner-side scatter-min, counted apart); the result must equal the
-     same solve through the plain scatter path on one prebuilt layout
-     (edge set, labels, overflow = 0, every CommStats field, every
-     round_trace row) and match scipy's MST weight within 1e-3 relative
-     with n - #components edges.  The time spent in the driver's host
-     bounds is reported apart;
-  3b. the earlier path, every lever off (``OFF``), checked the same way;
-  4. the lever path and the ``OFF`` path on RMAT (scale 16, average
+     "distributed_sharded", num_shards=8, pallas_minedges=True)`` with
+     no other lever argument — the reference's defaults, so the
+     ghost-vertex label cache with its flat push and the
+     shrinking-capacity driver — on GNM n = 2^20, m = 2^23 (seed 0),
+     for both algorithms.  K1 must launch at both MINEDGES sites in
+     every round (the per-run combine and the owner-side scatter-min,
+     counted apart); the result must equal the same solve through the
+     plain scatter path on one prebuilt layout (edge set, labels,
+     overflow = 0, every CommStats field, every round_trace row) and
+     match scipy's MST weight within 1e-3 relative with
+     n - #components edges.  The time spent in the driver's host bounds
+     is reported apart;
+  3b. the earlier paths, each checked the same way: the lever path
+     (``ghost_cache=False``, every other lever on), whose edge set the
+     cached path must equal while serving hits, pushing, and shipping
+     fewer lookup and push items (misses + pushed) than its misses; and
+     every lever off (``OFF``).  Only the main path gets a warm-up;
+  3c. the grid rung: ``num_shards=(4, 2), ghost_push="grid"`` (boruvka,
+     same graph), whose mask must equal the flat push's, with every
+     round a ghost round through the grid push and K1 at both sites;
+  4. the cached, lever and ``OFF`` paths on RMAT (scale 16, average
      degree 8) and the static engine on that graph, all against the
      exact Kruskal edge set;
   5. time K1 at the two shapes the engine gave it — the ``OFF`` path's
      owner-side scatter-min (pay1 and pay2 one buffer, as the engine
-     passes them) and the lever path's round-1 per-run combine (sorted
+     passes them) and the main path's round-1 per-run combine (sorted
      run ids, size = L, pay1 and pay2 two buffers) — with CUDA events,
      beside its plain version, one ``scatter_reduce_`` over a packed key
      as a library yardstick, and its bound from device-memory bytes;
@@ -82,9 +90,13 @@ RMAT_SCALE, RMAT_DEGREE = 16, 8
 OFF = dict(local_preprocessing=False, coalesce=False, src_only=False,
            adaptive_doubling=False, shrink_capacities=False,
            ghost_cache=False, relabel_skip=False)
-# the reference's defaults but the ghost cache: the main path
+# the main path is the reference's defaults (the ghost cache on); the
+# earlier paths drop the cache, then every lever
+CACHED = dict()
 LEVERS = dict(ghost_cache=False)
-PATHS = {"levers": LEVERS, "OFF": OFF}
+PATHS = {"cached": CACHED, "levers": LEVERS, "OFF": OFF}
+GRID_SHARDS = (4, 2)  # the grid rung: the cache's two-hop push
+GRID = dict(ghost_push="grid")
 SMALL_N = 1 << 15  # K2's resident-table regime (n' <= 35 000)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 K1_SOURCE = "src/repro_torch/kernels/segmin/csrc/owner_scatter_min.cu"
@@ -502,22 +514,46 @@ class K1Sites:
 class HostBounds:
     """While active, the host clock spent in the shrinking driver's numpy
     bounds: the host copy of the layout and its run structure
-    (``_HostGraph``), the lookup bound of the whole graph and each
-    round's bounds (``_host_round_caps``); nested calls count once."""
+    (``_HostGraph``), the lookup bound of the whole graph, each round's
+    bounds (``_host_round_caps``, the push bounds inside it), and the
+    ghost cache's: the cached-vertex and root tables, the table sizes,
+    the fill and subscription bounds.  ``seconds`` counts nested calls
+    once; ``by_name`` holds each function's own total, nested or not."""
+
+    GHOST = ("_host_ghost_table", "_root_table",
+             "_HostGraph.ghost_table_sizes",
+             "_ghost_fill_bounds", "_subscribe_capacity_bound",
+             "_push_capacity_bound", "_push_capacity_bound_grid")
 
     def __init__(self):
         self.seconds = 0.0
         self.calls = 0
+        self.by_name = {}
+
+    def ghost_seconds(self) -> float:
+        """The cache's own bounds: none of them nests in another."""
+        return sum(self.by_name.get(k, 0.0) for k in self.GHOST)
+
+    def text(self) -> str:
+        return ", ".join(f"{k} {v:.3f} s" for k, v in self.by_name.items())
 
     def __enter__(self):
         from repro_torch.core import distributed_sharded as ds
         self._ds = ds
         self._saved = {name: getattr(ds, name)
-                       for name in ("_lookup_bound", "_host_round_caps")}
+                       for name in ("_lookup_bound", "_host_round_caps",
+                                    "_host_ghost_table", "_root_table",
+                                    "_ghost_fill_bounds",
+                                    "_subscribe_capacity_bound",
+                                    "_push_capacity_bound",
+                                    "_push_capacity_bound_grid")}
         self._init = ds._HostGraph.__init__
+        self._sizes = ds._HostGraph.ghost_table_sizes
         depth = [0]
 
         def timed(fn):
+            name = fn.__qualname__
+
             def run(*args, **kw):
                 depth[0] += 1
                 t0 = time.perf_counter()
@@ -525,20 +561,24 @@ class HostBounds:
                     return fn(*args, **kw)
                 finally:
                     depth[0] -= 1
+                    dt = time.perf_counter() - t0
+                    self.by_name[name] = self.by_name.get(name, 0.0) + dt
                     if depth[0] == 0:
-                        self.seconds += time.perf_counter() - t0
+                        self.seconds += dt
                         self.calls += 1
             return run
 
         for name, fn in self._saved.items():
             setattr(ds, name, timed(fn))
         ds._HostGraph.__init__ = timed(self._init)
+        ds._HostGraph.ghost_table_sizes = timed(self._sizes)
         return self
 
     def __exit__(self, *exc):
         for name, fn in self._saved.items():
             setattr(self._ds, name, fn)
         self._ds._HostGraph.__init__ = self._init
+        self._ds._HostGraph.ghost_table_sizes = self._sizes
         return False
 
 
@@ -551,18 +591,20 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def run_main_path(dev, u, v, w, n, algorithm, levers):
-    """One warm-up, then the counted solve through the public entry
-    point with the counts set to 0 just before it.  Returns (mask,
-    weight, seconds, K1 sites, round_trace, host-bound seconds)."""
+def run_main_path(dev, u, v, w, n, algorithm, levers, warm=True,
+                  num_shards=NUM_SHARDS):
+    """With ``warm`` one warm-up, then the counted solve through the
+    public entry point with the counts set to 0 just before it.  Returns
+    (mask, weight, seconds, K1 sites, round_trace, ``HostBounds``)."""
     import torch
     from repro_torch.core.graph import from_numpy
     from repro_torch.core.mst import minimum_spanning_forest
 
     edges = from_numpy(u, v, w, n, device=dev)
-    kw = dict(engine="distributed_sharded", num_shards=NUM_SHARDS,
+    kw = dict(engine="distributed_sharded", num_shards=num_shards,
               algorithm=algorithm, pallas_minedges=True, **levers)
-    minimum_spanning_forest(edges, **kw)  # warm-up
+    if warm:
+        minimum_spanning_forest(edges, **kw)
     torch.cuda.synchronize()
     trace = []
     reset_counts()
@@ -572,7 +614,7 @@ def run_main_path(dev, u, v, w, n, algorithm, levers):
                                                **kw)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    return mask, weight, seconds, sites, trace, host.seconds
+    return mask, weight, seconds, sites, trace, host
 
 
 def compare_engine_paths(dev, u, v, w, n, algorithm, levers, capture=None):
@@ -581,7 +623,7 @@ def compare_engine_paths(dev, u, v, w, n, algorithm, levers, capture=None):
     ``capture`` names the K1 site whose first launch's inputs are kept,
     to time K1 at the engine's shape.  Returns (graph, result, engine
     seconds, host layout build seconds, K1 sites, round_trace,
-    host-bound seconds)."""
+    ``HostBounds``)."""
     import torch
     from repro_torch.core import distributed_sharded as ds
     from repro_torch.core.distributed import build_dist_graph
@@ -614,7 +656,74 @@ def compare_engine_paths(dev, u, v, w, n, algorithm, levers, capture=None):
     check(trace == plain_trace, f"{algorithm}: round_trace differs between "
           "the K1 and plain paths")
     check(int(kern[4]) == 0, f"{algorithm}: overflow {int(kern[4])}")
-    return g, kern, seconds, layout_s, sites, trace, host.seconds
+    return g, kern, seconds, layout_s, sites, trace, host
+
+
+def check_solve(what, mask, weight, secs, sites, trace, host, k1, peak,
+                ref_weight, ref_count, combine):
+    """Log one counted public-API solve and hold it to scipy and to K1's
+    launch contract: both MINEDGES sites in every round where the path
+    has the per-run combine (``combine``), the owner site alone
+    otherwise."""
+    count = int(mask.sum())
+    rel = abs(float(weight) - ref_weight) / ref_weight
+    log(f"{what} gnm: solve {secs:.3f} s wall (public API, incl. host "
+        f"layout build; {host.seconds:.3f} s of it in the driver's host "
+        f"bounds, {host.ghost_seconds():.3f} s of those the cache's); "
+        f"K1 launches {k1} (per-run combine {sites.combine}, owner-side "
+        f"{sites.owner}); round_trace rows {len(trace)}; edges {count} "
+        f"(scipy {ref_count}); weight {float(weight):.1f} (scipy "
+        f"{ref_weight:.1f}, rel {rel:.2e}); peak device memory "
+        f"{peak:.2f} GiB")
+    check(k1 > 0, f"{what}: the path launched K1 no time")
+    check(k1 == sites.combine + sites.owner,
+          f"{what}: K1 launched outside its two sites")
+    if combine:
+        check(sites.combine == sites.owner == len(trace) > 0,
+              f"{what}: K1 must launch at both MINEDGES sites in each of "
+              f"the {len(trace)} rounds (per-run combine {sites.combine}, "
+              f"owner-side {sites.owner})")
+    else:
+        check(sites.combine == 0, f"{what}: the path has no per-run "
+              "combine, yet K1 launched there")
+    check(count == ref_count, f"{what}: {count} MSF edges, scipy {ref_count}")
+    check(rel < 1e-3, f"{what}: weight off by {rel:.2e} relative")
+
+
+def check_cache_gain(algorithm, mask, stats, cached_mask, cached_stats):
+    """The cached path against the lever path: the same edge set, hits
+    and pushes, and fewer lookup and push items (misses + pushed) than
+    the lever path's misses."""
+    import numpy as np
+    check(np.array_equal(mask.cpu().numpy(), cached_mask),
+          f"{algorithm}: the cached path's edge set differs from the "
+          "lever path's")
+    shipped = cached_stats["misses"] + cached_stats["pushed"]
+    check(cached_stats["hits"] > 0 and cached_stats["pushed"] > 0,
+          f"{algorithm}: the cache served no hit or pushed nothing")
+    check(shipped < stats["misses"],
+          f"{algorithm}: misses + pushed {shipped} with the cache, not "
+          f"below the lever path's misses {stats['misses']}")
+    log(f"cache against the lever path, gnm {algorithm}: edge sets equal; "
+        f"items {cached_stats['items']:.4e} against {stats['items']:.4e} "
+        f"({cached_stats['items'] / stats['items']:.3f}x), bytes "
+        f"{cached_stats['bytes']:.4e} against {stats['bytes']:.4e} "
+        f"({cached_stats['bytes'] / stats['bytes']:.3f}x), calls "
+        f"{cached_stats['calls']:.0f} against {stats['calls']:.0f}; misses "
+        f"+ pushed {shipped:.4e} against misses {stats['misses']:.4e}")
+
+
+TRACE_KEYS = ("round", "level", "cap_edge", "cap_lookup", "cap_contract",
+              "cap_relabel", "cap_push", "cap_push_col", "cap_push_flat",
+              "alive_bound", "a2a_calls", "routed_items", "buffer_bytes",
+              "cache_hits", "lookup_items", "pushed_items")
+
+
+def log_trace(what, trace):
+    if trace:
+        log(f"{what}: " + json.dumps([[row[k] for k in TRACE_KEYS]
+                                      for row in trace])
+            + f" as {list(TRACE_KEYS)}")
 
 
 def kruskal_check(kmask, mask, what):
@@ -935,7 +1044,8 @@ def main() -> int:
     k2_err = k2_parity_wall(dev)
     k3_err = k3_parity_wall(dev)
 
-    # phases 3 and 3b: the lever path (the main path), then the OFF path
+    # phases 3 and 3b: the cached path (the main path), then the lever
+    # and OFF paths
     t0 = time.perf_counter()
     u, v, w, n = generators.gnm(GNM_N, GNM_M, seed=SEED)
     log(f"gnm: n={n} m={len(u)} generated in "
@@ -943,47 +1053,25 @@ def main() -> int:
     ref_weight, ref_count = scipy_msf(u, v, w, n)
     captured = {}
     launches = {}
+    cached = {}
     for path, levers in PATHS.items():
         for algorithm in ("boruvka", "filter_boruvka"):
             torch.cuda.reset_peak_memory_stats()
-            mask, weight, secs, sites, trace, host_s = run_main_path(
-                dev, u, v, w, n, algorithm, levers)
+            mask, weight, secs, sites, trace, host = run_main_path(
+                dev, u, v, w, n, algorithm, levers, warm=path == "cached")
             k1 = owner_scatter_min.launches
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            count = int(mask.sum())
-            rel = abs(float(weight) - ref_weight) / ref_weight
-            log(f"{path} path gnm {algorithm}: solve {secs:.3f} s wall "
-                f"(public API, incl. host layout build; {host_s:.3f} s "
-                f"of it in the driver's host bounds) after one warm-up; "
-                f"K1 launches {k1} (per-run combine {sites.combine}, "
-                f"owner-side {sites.owner}); round_trace rows "
-                f"{len(trace)}; edges {count} (scipy {ref_count}); "
-                f"weight {float(weight):.1f} (scipy {ref_weight:.1f}, rel "
-                f"{rel:.2e}); peak device memory {peak:.2f} GiB")
-            check(k1 > 0, f"{path} {algorithm}: the main path launched K1 "
-                  "no time")
-            check(k1 == sites.combine + sites.owner,
-                  f"{path} {algorithm}: K1 launched outside its two sites")
-            if levers is LEVERS:
-                check(sites.combine == sites.owner == len(trace) > 0,
-                      f"{algorithm}: K1 must launch at both MINEDGES sites "
-                      f"in each of the {len(trace)} rounds (per-run "
-                      f"combine {sites.combine}, owner-side {sites.owner})")
-            else:
-                check(sites.combine == 0, "the OFF path has no per-run "
-                      "combine, yet K1 launched there")
-            check(count == ref_count, f"{path} {algorithm}: {count} MSF "
-                  f"edges, scipy {ref_count}")
-            check(rel < 1e-3, f"{path} {algorithm}: weight off by "
-                  f"{rel:.2e} relative")
+            check_solve(f"{path} {algorithm}", mask, weight, secs, sites,
+                        trace, host, k1, peak, ref_weight, ref_count,
+                        combine=levers is not OFF)
             launches[(path, algorithm)] = dict(
                 total=k1, combine=sites.combine, owner=sites.owner)
             capture = None
-            if algorithm == "boruvka":
-                capture = "combine" if levers is LEVERS else "owner"
+            if algorithm == "boruvka" and path != "levers":
+                capture = "combine" if levers is CACHED else "owner"
             (g, res, engine_s, layout_s, esites, etrace,
-             ehost_s) = compare_engine_paths(dev, u, v, w, n, algorithm,
-                                             levers, capture)
+             ehost) = compare_engine_paths(dev, u, v, w, n, algorithm,
+                                           levers, capture)
             if capture:
                 captured[capture] = esites.captured
             sel = np.unique(g.eid.cpu().numpy()[res[0].cpu().numpy()])
@@ -992,20 +1080,47 @@ def main() -> int:
                   "differ")
             stats = {f: float(x) for f, x in zip(res[5]._fields, res[5])}
             log(f"{path} engine gnm {algorithm}: {engine_s:.3f} s on a "
-                f"prebuilt layout ({ehost_s:.3f} s of it in the host "
-                f"bounds; host layout build {layout_s:.3f} s), K1 and "
+                f"prebuilt layout ({ehost.seconds:.3f} s of it in the host "
+                f"bounds, {ehost.ghost_seconds():.3f} s of those the "
+                f"cache's; host layout build {layout_s:.3f} s), K1 and "
                 f"plain paths equal (mask, labels, overflow 0, "
                 f"round_trace, CommStats {json.dumps(stats)})")
-            if etrace:
-                keys = ("round", "level", "cap_edge", "cap_lookup",
-                        "cap_contract", "cap_relabel", "alive_bound",
-                        "a2a_calls", "routed_items", "buffer_bytes")
-                log(f"{path} round_trace gnm {algorithm}: " + json.dumps(
-                    [[row[k] for k in keys] for row in etrace]) +
-                    f" as {list(keys)}")
+            log(f"{path} engine gnm {algorithm} host bounds by function "
+                f"(each its own total, nested ones inside their caller's): "
+                f"{ehost.text()}")
+            log_trace(f"{path} round_trace gnm {algorithm}", etrace)
+            if levers is CACHED:
+                check(all(row["ghost"] and not row["grid_push"]
+                          for row in etrace),
+                      f"{algorithm}: a round of the cached path did not "
+                      "read the ghost tables through the flat push")
+                cached[algorithm] = (mask.cpu().numpy(), stats)
+            elif levers is LEVERS:
+                check_cache_gain(algorithm, mask, stats, *cached[algorithm])
             del g, res, mask
 
-    # phase 4: RMAT through both paths, and the static engine
+    # phase 3c: the grid rung of the ghost push
+    torch.cuda.reset_peak_memory_stats()
+    mask, weight, secs, sites, trace, host = run_main_path(
+        dev, u, v, w, n, "boruvka", GRID, warm=False, num_shards=GRID_SHARDS)
+    k1 = owner_scatter_min.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_solve("grid rung boruvka", mask, weight, secs, sites, trace, host,
+                k1, peak, ref_weight, ref_count, combine=True)
+    launches[("grid", "boruvka")] = dict(total=k1, combine=sites.combine,
+                                         owner=sites.owner)
+    check(all(row["ghost"] and row["grid_push"] and row["cap_push_col"] > 0
+              for row in trace),
+          "grid rung: a round did not read the ghost tables through the "
+          "grid push")
+    check(np.array_equal(mask.cpu().numpy(), cached["boruvka"][0]),
+          "grid rung: the mask differs from the flat push's")
+    log_trace("grid rung round_trace gnm boruvka", trace)
+    log(f"grid rung (num_shards={GRID_SHARDS}, ghost_push='grid'): mask "
+        "equals the flat push's, every round through the grid push")
+    del mask
+
+    # phase 4: RMAT through every path, and the static engine
     ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
                                      * RMAT_DEGREE // 2, seed=SEED)
     edges = from_numpy(ru, rv, rw, rn, device=dev)
@@ -1017,8 +1132,8 @@ def main() -> int:
         kruskal_check(rmat_kmask, mask, f"rmat distributed_sharded {path}")
     mask, _ = minimum_spanning_forest(edges, engine="static")
     kruskal_check(rmat_kmask, mask, "rmat static")
-    log(f"rmat scale {RMAT_SCALE} (n={rn}, m={len(ru)}): sharded (lever "
-        "and OFF paths) and static engines equal the Kruskal edge set")
+    log(f"rmat scale {RMAT_SCALE} (n={rn}, m={len(ru)}): sharded (cached, "
+        "lever and OFF paths) and static engines equal the Kruskal edge set")
 
     # phase 5: K1 at the engine's two shapes
     k1_sites = {}
@@ -1027,7 +1142,7 @@ def main() -> int:
         k1 = time_k1(args, size)
         k1_sites[site] = k1
         what = ("OFF path owner-side scatter-min" if site == "owner" else
-                "lever path per-run combine, round 1")
+                "cached path per-run combine, round 1")
         log(f"k1 {what}: rows={args[0].shape[0]} L={args[0].shape[1]} "
             f"size={size} pay1 is pay2: {args[3] is args[4]} ok lanes="
             f"{k1['ok_lanes']}{list_use_text(k1['list_use'])} winning "
@@ -1143,15 +1258,15 @@ def main() -> int:
     k1 = k1_sites["combine"]
     kernels = [dict(name="owner_scatter_min", route="cuda",
                     source=K1_SOURCE, replaces=K1_REPLACES,
-                    launches=launches[("levers", "boruvka")]["total"],
+                    launches=launches[("cached", "boruvka")]["total"],
                     max_abs_err=max(k1["max_abs_err"],
                                     k1_sites["owner"]["max_abs_err"]),
                     ms=k1["ms"], plain_ms=k1["plain_ms"],
                     bound_ms=k1["bound_ms"], bound_by="bytes",
                     library_ms=k1["library_ms"],
-                    shape="per-run combine, round 1 of the lever path",
+                    shape="per-run combine, round 1 of the cached path",
                     owner_site=dict(
-                        launches=launches[("levers", "boruvka")]["owner"],
+                        launches=launches[("cached", "boruvka")]["owner"],
                         shape="owner-side scatter-min of the OFF path",
                         ms=k1_sites["owner"]["ms"],
                         plain_ms=k1_sites["owner"]["plain_ms"],

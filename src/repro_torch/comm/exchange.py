@@ -21,6 +21,12 @@ even on overflowed (garbage) items:
 * ``ExchangeStats`` counts one shard's ``[p, C]`` buffers (what one
   device ships), in float32, added in the reference's order.
 
+The multicast primitives deliver one item to every shard of a bitmask:
+``scatter_updates`` over the whole shard axis (int32 masks, so at most
+31 shards), ``scatter_updates_grid`` in two hops over an ``(R, C)``
+layout with one mask per grid axis (at most 31 x 31 shards).  Only the
+ghost-vertex label cache uses them.
+
 ``site`` labels a call for fault injection, which the port does not have
 yet; the argument is kept so call sites stay those of the reference.
 """
@@ -31,7 +37,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.comm.grid_alltoall import all_to_all_nd
+from repro_torch.comm.grid_alltoall import all_to_all_axis, all_to_all_nd
 
 
 class ExchangeStats(NamedTuple):
@@ -216,6 +222,164 @@ def reply(ex: ExchangeResult, answers, axis_sizes: Sequence[int],
                            bytes=stats.bytes + by * h,
                            slots=stats.slots + slots)
     return result, stats
+
+
+def _mask_to_copies(dest_mask: torch.Tensor, valid: torch.Tensor,
+                    p: int) -> torch.Tensor:
+    """Expand int32 destination bitmasks (``[..., L]``) to the copy
+    matrix ``[..., L, p]``: copy (i, s) exists iff item i is valid and
+    bit s of its mask is set.  Bits 0..30 are destinations; bit 31, the
+    sign bit, is never one, so ``p <= 31``."""
+    lanes = torch.arange(p, dtype=torch.int32, device=dest_mask.device)
+    return valid.unsqueeze(-1) & (((dest_mask.unsqueeze(-1) >> lanes) & 1)
+                                  > 0)
+
+
+def _axis_masks_to_copies(row_mask: torch.Tensor, col_mask: torch.Tensor,
+                          valid: torch.Tensor, r: int, c: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grid multicast's pair of per-axis copy matrices: ``(row copies
+    [..., L, r], col copies [..., L, c])``; the delivered set is their
+    outer product, up to 31 x 31 shards."""
+    return (_mask_to_copies(row_mask, valid, r),
+            _mask_to_copies(col_mask, valid, c))
+
+
+class ScatterResult(NamedTuple):
+    """Receive side of one multicast; it has no reply leg."""
+    recv: object               # [p, D, C, ...] received payloads
+    recv_ok: torch.Tensor      # [p, D, C] bool — slot holds a delivered item
+    sent_ok: torch.Tensor      # [p, L, D] bool — (item, dest) copy admitted
+    overflow: torch.Tensor     # [] int32 dropped copies over all shards
+    stats: Optional[ExchangeStats] = None
+
+
+def _copy_buffers(leaves, want: torch.Tensor, capacity: int):
+    """Send buffers of a multicast: copy (s, i, d) of ``want`` ([p, L,
+    D]) takes position ``pos`` = its rank among shard s's copies to d (a
+    cumsum down the items) in row d of shard s's ``[D, capacity]``
+    buffer, if ``pos < capacity``.  Returns (buffers of ``leaves``
+    ([p, L, ...] each) as ``[p, D, capacity, ...]``, the validity
+    buffer, ok [p, L, D])."""
+    p, L, D = want.shape
+    dev = want.device
+    pos = torch.cumsum(want.to(torch.int32), dim=1) - 1
+    ok = want & (pos < capacity)
+    rows = p * D * capacity
+    shard = torch.arange(p, dtype=torch.int64, device=dev).view(p, 1, 1)
+    dst = torch.arange(D, dtype=torch.int64, device=dev).view(1, 1, D)
+    copy = torch.arange(p * L * D, dtype=torch.int64, device=dev).view(
+        p, L, D)
+    # copies that are not ok land in trash rows of their own past the
+    # buffer (the reference's mode="drop"), so unused slots read 0
+    flat = torch.where(ok, (shard * D + dst) * capacity + pos.long(),
+                       rows + copy).reshape(-1)
+
+    def scatter(x):  # x: [p, L, D, ...], one value per copy
+        rest = tuple(x.shape[3:])
+        buf = torch.zeros((rows + p * L * D,) + rest, dtype=x.dtype,
+                          device=dev)
+        buf.index_copy_(0, flat, x.reshape((p * L * D,) + rest))
+        return buf[:rows].view((p, D, capacity) + rest)
+
+    send = tuple(scatter(x.unsqueeze(2).expand((p, L, D)
+                                               + tuple(x.shape[2:])))
+                 for x in leaves)
+    return send, scatter(ok), ok
+
+
+def scatter_updates(payload, dest_mask: torch.Tensor, valid: torch.Tensor,
+                    capacity: int, axis_sizes: Sequence[int],
+                    schedule: str = "grid",
+                    stats: Optional[ExchangeStats] = None,
+                    site: str = "") -> ScatterResult:
+    """Multicast ``payload[s, i]`` to every shard set in ``dest_mask[s,
+    i]`` (int32, ``p <= 31``), in one exchange of ``[p, capacity]``
+    buffers.  Copies past ``capacity`` per destination are dropped and
+    counted in ``overflow``.  ``stats`` books one logical exchange
+    (payload leaves + the validity buffer) with the hop multiplier on
+    calls, bytes and slots: a multicast re-admits its copies at every
+    hop, so it books ``p * capacity * hops`` slots where
+    ``routed_exchange`` books ``p * capacity``.  ``pushed`` is the
+    caller's to count."""
+    sizes = tuple(axis_sizes)
+    p = math.prod(sizes)
+    leaves = _leaves(payload)
+    want = _mask_to_copies(dest_mask, valid, p)
+    send, send_mask, ok = _copy_buffers(leaves, want, capacity)
+    recv = tuple(all_to_all_nd(b, sizes, schedule) for b in send)
+    recv_ok = all_to_all_nd(send_mask, sizes, schedule)
+    overflow = (want & ~ok).sum(dtype=torch.int32)
+    if stats is not None:
+        h = _hops(sizes, schedule)
+        by = _buffer_bytes(send) + _buffer_bytes(send_mask)
+        stats = stats._replace(calls=stats.calls + (len(leaves) + 1) * h,
+                               items=stats.items + _psum_count(ok),
+                               bytes=stats.bytes + by * h,
+                               slots=stats.slots + p * capacity * h)
+    if not isinstance(payload, (tuple, list)):
+        recv = recv[0]
+    return ScatterResult(recv, recv_ok, ok, overflow, stats)
+
+
+def scatter_updates_grid(payload, row_mask: torch.Tensor,
+                         col_mask: torch.Tensor, valid: torch.Tensor,
+                         cap_row: int, cap_col: int,
+                         axis_sizes: Sequence[int],
+                         stats: Optional[ExchangeStats] = None,
+                         site_row: str = "", site_col: str = ""
+                         ) -> ScatterResult:
+    """Two-hop multicast over an ``(R, C)`` layout: ``payload[s, i]``
+    reaches every shard ``(rr, cc)`` with bit ``rr`` of ``row_mask`` and
+    bit ``cc`` of ``col_mask`` set.
+
+    Hop 1 ships one copy per subscribing column along the owner's row
+    (an exchange over the col axis, ``[C, cap_row]`` buffers), carrying
+    the row mask; hop 2 re-multicasts each deputy's items down its
+    column (over the row axis, ``[R, cap_col]`` buffers).  The delivered
+    set is the outer product of the masks, so receivers must apply
+    updates by value.  Both hops drop and count copies past capacity.
+    ``stats`` books the legs apart: ``(leaves + 2) + (leaves + 1)``
+    calls, ``C * cap_row + R * cap_col`` slots, no hop multiplier.
+    ``sent_ok`` is hop 1's ``[p, L, C]`` admission matrix.
+    """
+    sizes = tuple(axis_sizes)
+    if len(sizes) != 2:
+        raise ValueError(f"scatter_updates_grid needs a (row, col) layout, "
+                         f"got {sizes!r}")
+    R, C = sizes
+    p = R * C
+    leaves = _leaves(payload)
+
+    # hop 1: owner -> deputies along the row (exchange over col)
+    want1 = _mask_to_copies(col_mask, valid, C)
+    send1, mask1, ok1 = _copy_buffers(leaves + (row_mask,), want1, cap_row)
+    hop1 = tuple(all_to_all_axis(b, sizes, 1) for b in send1)
+    ok_r = all_to_all_axis(mask1, sizes, 1)
+    ovf1 = (want1 & ~ok1).sum(dtype=torch.int32)
+
+    # hop 2: deputy -> subscribers down the column (exchange over row)
+    M = C * cap_row
+    dep = tuple(x.reshape((p, M) + tuple(x.shape[3:])) for x in hop1)
+    want2 = _mask_to_copies(dep[-1], ok_r.reshape(p, M), R)
+    send2, mask2, ok2 = _copy_buffers(dep[:-1], want2, cap_col)
+    recv = tuple(all_to_all_axis(b, sizes, 0) for b in send2)
+    recv_ok = all_to_all_axis(mask2, sizes, 0)
+    ovf2 = (want2 & ~ok2).sum(dtype=torch.int32)
+
+    if stats is not None:
+        by = (_buffer_bytes(send1) + _buffer_bytes(mask1)
+              + _buffer_bytes(send2) + _buffer_bytes(mask2))
+        per = (ok1.reshape(p, -1).sum(1).to(torch.float32)
+               + ok2.reshape(p, -1).sum(1).to(torch.float32))
+        stats = stats._replace(
+            calls=stats.calls + (len(leaves) + 2) + (len(leaves) + 1),
+            items=stats.items + psum_f32(per),
+            bytes=stats.bytes + by,
+            slots=stats.slots + (C * cap_row + R * cap_col))
+    if not isinstance(payload, (tuple, list)):
+        recv = recv[0]
+    return ScatterResult(recv, recv_ok, ok1, ovf1 + ovf2, stats)
 
 
 def request_reply(request, dest: torch.Tensor, valid: torch.Tensor,

@@ -13,6 +13,10 @@ into a grid and exchanges along one grid axis per hop; each hop is a
 transpose of one source axis with its destination axis, and after all
 hops the data sits exactly where the direct exchange puts it — the
 reference's element-wise identity of both schedules.
+
+``all_to_all_axis`` is the exchange over one grid axis alone (the
+reference's ``lax.all_to_all`` over one named mesh axis), which the
+two-hop multicast ``comm/exchange.py: scatter_updates_grid`` takes.
 """
 from __future__ import annotations
 
@@ -45,3 +49,26 @@ def all_to_all_nd(x: torch.Tensor, axis_sizes: Sequence[int],
             xr = xr.transpose(k, d + k)
         return xr.reshape((p, p) + tuple(x.shape[2:])).contiguous()
     raise ValueError(schedule)
+
+
+def all_to_all_axis(x: torch.Tensor, axis_sizes: Sequence[int],
+                    axis: int) -> torch.Tensor:
+    """Exchange over grid axis ``axis`` alone.
+
+    ``x`` is ``[p, D, ...]`` with ``D = axis_sizes[axis]``: chunk ``d``
+    of shard ``s`` goes to the shard whose coordinate on ``axis`` is
+    ``d`` and whose other coordinates are those of ``s`` (shards are laid
+    out row-major over ``axis_sizes``).  Returns the contiguous
+    ``[p, D, ...]`` receive buffers, chunk ``j`` from the shard whose
+    coordinate on ``axis`` is ``j``.
+    """
+    sizes = tuple(int(s) for s in axis_sizes)
+    p = math.prod(sizes)
+    d = sizes[axis]
+    if x.shape[0] != p or x.shape[1] != d:
+        raise ValueError(f"all_to_all_axis: buffers {tuple(x.shape)} do not "
+                         f"match axis {axis} of {sizes}")
+    rest = tuple(x.shape[2:])
+    xr = x.reshape(sizes + (d,) + rest)
+    # swap the source coordinate on `axis` with the chunk (destination)
+    return xr.transpose(axis, len(sizes)).reshape((p, d) + rest).contiguous()

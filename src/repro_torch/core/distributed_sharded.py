@@ -2,21 +2,25 @@
 scalable path for n >> memory/PE).
 
 Port of ``repro/core/distributed_sharded.py`` with every communication
-lever except the ghost-vertex label cache.  The label vector is
-1D-sharded by vertex id (owner of ``vid`` is shard ``vid // vps``) and
-every label access is a routed request/reply through
-``comm/exchange.py``.  The reference runs one program per device under
-``shard_map``; here the p shards are the leading axis of every tensor
-(``[p, cap]`` edges, ``[p, vps]`` labels) in one process, so
-``axis_index`` is ``arange(p)``, a ``psum`` a sum over dim 0 and an
-all-to-all a transpose.
+lever.  The label vector is 1D-sharded by vertex id (owner of ``vid`` is
+shard ``vid // vps``) and every label access is a routed request/reply
+through ``comm/exchange.py``, or a read of the ghost-vertex label cache.
+The reference runs one program per device under ``shard_map``; here the
+p shards are the leading axis of every tensor (``[p, cap]`` edges,
+``[p, vps]`` labels) in one process, so ``axis_index`` is ``arange(p)``,
+a ``psum`` a sum over dim 0 and an all-to-all a transpose.  The shards
+may be laid out as ``(p,)`` or as an ``(R, C)`` grid, the reference's
+two-axis mesh, shard s at ``(s // C, s % C)``: the grid schedule then
+takes one hop per axis.
 
 Per round (``_round_body``):
 
-  MINEDGES   both endpoint labels are looked up from their owners — one
-             request per slot, or with ``coalesce`` one per contiguous
-             equal-endpoint run (the v column through the v-sorted index
-             ``VIndex`` unless ``vsorted_index=False``).  Candidates go
+  MINEDGES   both endpoint labels are read from the local ghost tables
+             (``ghost_cache``, the default), or looked up from their
+             owners — one request per slot, or with ``coalesce`` one per
+             contiguous equal-endpoint run (the v column through the
+             v-sorted index ``VIndex`` unless ``vsorted_index=False``).
+             Candidates go
              to the owners of both endpoint components, or with
              ``src_only`` one per source run to the source component's
              owner only, combined first per run (``_sharded_minedges_src``).
@@ -33,6 +37,10 @@ Per round (``_round_body``):
              lookup; with ``relabel_skip`` a vertex whose component chose
              nothing is settled and stops asking.  Slots whose endpoints
              share a component join the persistent ``dead`` mask.
+  PUSH       with the cache, each owner multicasts its merged roots' new
+             roots to the shards that cache them (flat, or in two hops
+             over an ``(R, C)`` layout) and moves their subscriber masks
+             to the surviving root.
 
 ``local_preprocessing`` contracts provably-local MSF edges without
 communication first (``_sharded_preprocess``).  With
@@ -42,9 +50,9 @@ the measured dead mask and label table, snapped to the ladder of
 ``core/distributed.py: shrink_schedule``; otherwise the fused engine
 runs every round at the flat capacities (``edge_capacity`` =
 edges/shard, ``label_capacity`` = vps).  Every exchange reports
-overflow; results are exact iff it is 0.  ``ghost_cache=True``, ``plan``
-and the checkpoint arguments raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item — a lever never quietly runs something else.
+overflow; results are exact iff it is 0.  ``plan`` and the checkpoint
+arguments raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
+— a lever never quietly runs something else.
 """
 from __future__ import annotations
 
@@ -55,8 +63,10 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.comm.exchange import (ExchangeStats, _hops, psum_f32,
-                                       reply, routed_exchange)
+from repro_torch.comm.exchange import (ExchangeStats, _hops,
+                                       _mask_to_copies, psum_f32, reply,
+                                       routed_exchange, scatter_updates,
+                                       scatter_updates_grid)
 from repro_torch.core.distributed import (ESENT, CommStats, DistGraph,
                                           _doubling_iters, _weight_pivots,
                                           quantize_capacity)
@@ -64,6 +74,12 @@ from repro_torch.core.graph import reference_order_sum
 from repro_torch.kernels.segmin.ops import run_metadata, scatter_min_tables
 
 _ESENT = int(ESENT)
+
+# the ghost push keeps subscriber sets as int32 bitmasks and bit 31 is
+# the sign bit, so the flat push reaches at most 31 shards; the grid
+# push keeps one mask per axis of an (R, C) layout, at most 31 x 31
+MAX_GHOST_SHARDS = 31
+MAX_GHOST_SHARDS_GRID = MAX_GHOST_SHARDS ** 2
 
 Runs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -228,6 +244,179 @@ def _relabel_lookup(parent, has, lab, settled, vps: int, capacity: int,
     lab = torch.where(okr, out_lab, lab)
     settled = settled | (okr & ~out_cho)
     return lab, settled, ex.overflow, st
+
+
+# --------------------------------------------------------------------------
+# ghost-vertex label cache
+# --------------------------------------------------------------------------
+
+class GhostState(NamedTuple):
+    """Per-shard ghost state, ``[p, ...]`` each: ``gu`` the cached label
+    of each distinct source run (by run rank), ``gv`` of each distinct
+    v (by v-sorted rank), -1 where unfilled; for each owned vertex the
+    subscriber bitmask of the shards caching it as a root — ``rs_row``
+    over all shards and ``rs_col`` zeros with the flat push, the row and
+    column masks with the grid push."""
+    gu: torch.Tensor
+    gv: torch.Tensor
+    rs_row: torch.Tensor
+    rs_col: torch.Tensor
+
+
+def _ghost_fill(table, vids, runs: Runs, valid, G: int, vps: int,
+                capacity: int, axis_sizes: Sequence[int], schedule: str,
+                stats: ExchangeStats):
+    """Fill one ghost table: one request per distinct-value run holding
+    a valid slot, booked under ``misses``.  Returns (ghost [p, G] by run
+    rank, -1 where unanswered, overflow, stats)."""
+    head, _, run_id = runs
+    p, L = valid.shape
+    req = head & _take(_scatter_any(valid, run_id, L), run_id)
+    out, ok, ovf, st = _sharded_lookup(table, vids, req, vps, capacity,
+                                       axis_sizes, schedule, stats,
+                                       count_misses=True, site="fill")
+    ghost = torch.full((p, G + 1), -1, dtype=torch.int32,
+                       device=valid.device)
+    ghost.scatter_(1, torch.where(ok, run_id, G).long(), out)
+    return ghost[:, :G].contiguous(), ovf, st
+
+
+def _bit_or_scatter(mask: torch.Tensor, idx: torch.Tensor,
+                    bits: torch.Tensor, ok: torch.Tensor,
+                    width: int) -> torch.Tensor:
+    """``mask[s, idx] |= bits`` for the ok items of each shard.  Torch has
+    no bitwise-or scatter, so the masks are expanded to ``width`` bool
+    lanes, the set bits written into them (a drop row takes the rest)
+    and the lanes packed back; ``width <= 31``."""
+    p, V = mask.shape
+    lanes = torch.arange(width, dtype=torch.int32, device=mask.device)
+    acc = torch.zeros((p, V + 1, width), dtype=torch.bool,
+                      device=mask.device)
+    acc[:, :V] = _mask_to_copies(mask, torch.ones_like(mask, dtype=torch.bool),
+                                 width)
+    add = _mask_to_copies(bits, ok, width)
+    acc.scatter_(1, torch.where(add, idx.long().unsqueeze(-1), V), True)
+    return (acc[:, :V].to(torch.int32) << lanes).sum(2, dtype=torch.int32)
+
+
+def _ghost_setup(u, v, valid, live, lab, vperm: Optional[torch.Tensor],
+                 n: int, vps: int, Gu: int, Gv: int, cap_fill_u: int,
+                 cap_fill_v: int, cap_sub: int, axis_sizes: Sequence[int],
+                 schedule: str, stats: ExchangeStats, grid_push: bool):
+    """Build the ghost state once a solve, after LOCALPREPROCESSING.
+
+    Two fills of live endpoints (u in slot order, v through the v-sorted
+    index), then one subscription per distinct cached root: each shard
+    sorts its cached labels and sends the run heads with its bit (with
+    the grid push, its row bit and column bit) to the root's owner,
+    which ORs them into the root's masks.  The subscription items count
+    as ``pushed``.  Returns (GhostState, vidx, runs_u, overflow, stats).
+    """
+    p = u.shape[0]
+    dev = u.device
+    runs_u = run_metadata(u)
+    vidx = _build_v_index(v, valid, n, perm=vperm)
+    gu, o1, st = _ghost_fill(lab, torch.where(valid, u, n), runs_u, live, Gu,
+                             vps, cap_fill_u, axis_sizes, schedule, stats)
+    gv, o2, st = _ghost_fill(lab, vidx.key, vidx.runs, _take(live, vidx.perm),
+                             Gv, vps, cap_fill_v, axis_sizes, schedule, st)
+    cat = torch.cat([gu, gv], 1)
+    cat = torch.sort(torch.where(cat >= 0, cat, _ESENT), dim=1).values
+    req = torch.ones_like(cat, dtype=torch.bool)
+    req[:, 1:] = cat[:, 1:] != cat[:, :-1]
+    req &= cat < _ESENT
+    items0 = st.items
+    zeros = torch.zeros((p, vps), dtype=torch.int32, device=dev)
+    base = _bases(p, vps, dev)
+    shard = torch.arange(p, dtype=torch.int32, device=dev).view(p, 1)
+    one = torch.ones_like(shard)
+    if grid_push:
+        R, C = axis_sizes
+        bits = ((one << (shard // C)).expand_as(cat),
+                (one << (shard % C)).expand_as(cat))
+    else:
+        bits = ((one << shard).expand_as(cat),)
+    ex = routed_exchange((cat,) + bits, cat // vps, req, cap_sub, axis_sizes,
+                         schedule, stats=st, site="subscribe")
+    st = ex.stats
+    # subscription upkeep rides the push counter, so misses + pushed is
+    # everything the cache ships
+    st = st._replace(pushed=st.pushed + (st.items - items0))
+    rvid = ex.recv[0].reshape(p, -1) - base
+    okr = ex.recv_ok.reshape(p, -1)
+    if grid_push:
+        rs_row = _bit_or_scatter(zeros, rvid, ex.recv[1].reshape(p, -1), okr,
+                                 R)
+        rs_col = _bit_or_scatter(zeros, rvid, ex.recv[2].reshape(p, -1), okr,
+                                 C)
+    else:
+        rs_row = _bit_or_scatter(zeros, rvid, ex.recv[1].reshape(p, -1), okr,
+                                 p)
+        rs_col = zeros
+    return (GhostState(gu, gv, rs_row, rs_col), vidx, runs_u,
+            o1 + o2 + ex.overflow, st)
+
+
+def _ghost_push(gs: GhostState, parent, vps: int, capacity: int,
+                cap_col: int, axis_sizes: Sequence[int], schedule: str,
+                stats: ExchangeStats, grid_push: bool):
+    """Root-delta push after CONTRACT.
+
+    The dirty roots are the subscribed owned vertices whose parent moved.
+    Each owner multicasts ``(c, parent[c])`` to c's subscribers
+    (``scatter_updates``, or the two-hop ``scatter_updates_grid``) and
+    forwards c's masks to ``owner(parent[c])``, where they are ORed into
+    the surviving root's.  Receivers rewrite the table entries whose
+    value is an old root they were sent, by binary search over the
+    received pairs sorted by old root, so the grid's over-delivery
+    matches nothing.  Push and forward items count as ``pushed``.
+    Returns (GhostState, overflow, stats).
+    """
+    p = parent.shape[0]
+    dev = parent.device
+    base = _bases(p, vps, dev)
+    vid = base + torch.arange(vps, dtype=torch.int32, device=dev)
+    dirty = (parent != vid) & (gs.rs_row != 0)
+    items0 = stats.items
+    if grid_push:
+        R, C = axis_sizes
+        upd = scatter_updates_grid((vid, parent), gs.rs_row, gs.rs_col,
+                                   dirty, capacity, cap_col, axis_sizes,
+                                   stats=stats, site_row="ghost_push_row",
+                                   site_col="ghost_push_col")
+        masks, widths = (gs.rs_row, gs.rs_col), (R, C)
+    else:
+        upd = scatter_updates((vid, parent), gs.rs_row, dirty, capacity,
+                              axis_sizes, schedule, stats=stats, site="push")
+        masks, widths = (gs.rs_row,), (p,)
+    # the masks follow the merge to the surviving root's owner
+    fx = routed_exchange((parent,) + masks, parent // vps, dirty, capacity,
+                         axis_sizes, schedule, stats=upd.stats, site="push")
+    st = fx.stats
+    st = st._replace(pushed=st.pushed + (st.items - items0))
+    fvid = fx.recv[0].reshape(p, -1) - base
+    fok = fx.recv_ok.reshape(p, -1)
+    merged = [_bit_or_scatter(torch.where(dirty, 0, m), fvid,
+                              fx.recv[1 + k].reshape(p, -1), fok, wd)
+              for k, (m, wd) in enumerate(zip(masks, widths))]
+    rs_row = merged[0]
+    rs_col = merged[1] if grid_push else gs.rs_col
+    # apply the received (old root -> new root) pairs by value
+    okp = upd.recv_ok.reshape(p, -1)
+    rold = torch.where(okp, upd.recv[0].reshape(p, -1), _ESENT)
+    sc, order = torch.sort(rold, dim=1, stable=True)
+    sr = upd.recv[1].reshape(p, -1).gather(1, order)
+    M = sc.shape[1]
+
+    def apply(gt):
+        if M == 0:
+            return gt
+        j = torch.searchsorted(sc, gt.contiguous()).clamp(0, M - 1)
+        hit = sc.gather(1, j) == gt  # unfilled entries are -1: never hit
+        return torch.where(hit, sr.gather(1, j), gt)
+
+    return (GhostState(apply(gs.gu), apply(gs.gv), rs_row, rs_col),
+            upd.overflow + fx.overflow, st)
 
 
 # --------------------------------------------------------------------------
@@ -577,44 +766,83 @@ def _sharded_contract(has, other, n: int, vps: int, capacity: int,
     return parent, keep, ov, stats
 
 
-def _round_body(u, v, w, eid, live0, lab, mst, dead, runs_u, runs_v, vidx,
-                settled, n: int, vps: int, axis_sizes: Sequence[int],
-                cap_edge: int, cap_label: int, cap_lookup: int,
-                cap_contract: int, schedule: str, coalesce: bool,
-                src_only: bool, adaptive: bool, relabel_skip: bool,
-                pallas_minedges: bool, stats: ExchangeStats):
-    """One MINEDGES → CONTRACT → RELABEL round over 1D-sharded labels.
+def _ghost_read(gs: GhostState, runs_u: Runs, vidx: VIndex, live,
+                stats: ExchangeStats):
+    """Both endpoint labels from the local ghost tables: u by source-run
+    rank, v by v-sorted rank.  Each run head of either column whose run
+    holds a live slot is one hit.  Returns (ru, rv, stats)."""
+    head_u, _, run_id_u = runs_u
+    head_v, _, run_id_v = vidx.runs
+    L = live.shape[1]
+    au = _scatter_any(live, run_id_u, L)
+    # the v side's run liveness is keyed by rank, never by perm
+    av = _scatter_any(live, vidx.rank, L)
+    hits = ((head_u & _take(au, run_id_u)).sum(1).to(torch.float32)
+            + (head_v & _take(av, run_id_v)).sum(1).to(torch.float32))
+    ru = _take(gs.gu, run_id_u.clamp(0, gs.gu.shape[1] - 1))
+    rv = _take(gs.gv, vidx.rank.clamp(0, gs.gv.shape[1] - 1))
+    return ru, rv, stats._replace(hits=stats.hits + psum_f32(hits))
 
-    Shared by the fused flat-capacity engine and the shrinking driver,
-    which differ only in the capacities each round gets.  Endpoints are
-    resolved per slot, or with ``coalesce`` per equal-vid run (the u
-    column in slot order, the v column through ``vidx``, or in slot
-    order through ``runs_v`` when the v-sorted index is off).
 
-    Returns (lab, mst, dead, settled, go, overflow_delta, stats); ``go``
-    is a 0-dim bool tensor (some component chose an edge).
-    """
-    live = live0 & ~dead
+def _endpoint_lookups(lab, u, v, live, runs_u, runs_v, vidx, vps: int,
+                      capacity: int, axis_sizes: Sequence[int],
+                      schedule: str, coalesce: bool, stats: ExchangeStats):
+    """Both endpoint labels looked up from their owners: per slot, or
+    with ``coalesce`` per equal-vid run (the u column in slot order, the
+    v column through ``vidx``, or in slot order through ``runs_v`` when
+    the v-sorted index is off).  Returns (ru, rv, looked, overflow,
+    stats)."""
     if coalesce and runs_u is not None:
         ru, ok_u, o1, st = _coalesced_lookup(lab, u, runs_u, live, vps,
-                                             cap_lookup, axis_sizes,
+                                             capacity, axis_sizes,
                                              schedule, stats)
     else:
-        ru, ok_u, o1, st = _sharded_lookup(lab, u, live, vps, cap_lookup,
+        ru, ok_u, o1, st = _sharded_lookup(lab, u, live, vps, capacity,
                                            axis_sizes, schedule, stats,
                                            count_misses=True)
     if coalesce and vidx is not None:
-        rv, ok_v, o2, st = _vsorted_lookup(lab, vidx, live, vps, cap_lookup,
+        rv, ok_v, o2, st = _vsorted_lookup(lab, vidx, live, vps, capacity,
                                            axis_sizes, schedule, st)
     elif coalesce and runs_v is not None:
         rv, ok_v, o2, st = _coalesced_lookup(lab, v, runs_v, live, vps,
-                                             cap_lookup, axis_sizes,
+                                             capacity, axis_sizes,
                                              schedule, st)
     else:
-        rv, ok_v, o2, st = _sharded_lookup(lab, v, live, vps, cap_lookup,
+        rv, ok_v, o2, st = _sharded_lookup(lab, v, live, vps, capacity,
                                            axis_sizes, schedule, st,
                                            count_misses=True)
-    looked = ok_u & ok_v
+    return ru, rv, ok_u & ok_v, o1 + o2, st
+
+
+def _round_body(u, v, w, eid, live0, lab, mst, dead, runs_u, runs_v, vidx,
+                ghost: Optional[GhostState], settled, n: int, vps: int,
+                axis_sizes: Sequence[int], cap_edge: int, cap_label: int,
+                cap_lookup: int, cap_contract: int, cap_push: int,
+                cap_push_col: int, schedule: str, coalesce: bool,
+                src_only: bool, adaptive: bool, relabel_skip: bool,
+                pallas_minedges: bool, grid_push: bool,
+                stats: ExchangeStats):
+    """One MINEDGES → CONTRACT → RELABEL round over 1D-sharded labels.
+
+    Shared by the fused flat-capacity engine and the shrinking driver,
+    which differ only in the capacities each round gets.  With the ghost
+    cache (``ghost`` given) the endpoint labels are read from the ghost
+    tables (``_ghost_read``) and the round ends with the root-delta push
+    (``_ghost_push``); otherwise they are looked up from their owners
+    (``_endpoint_lookups``).
+
+    Returns (lab, mst, dead, ghost, settled, go, overflow_delta, stats);
+    ``go`` is a 0-dim bool tensor (some component chose an edge).
+    """
+    live = live0 & ~dead
+    if ghost is not None:
+        ru, rv, st = _ghost_read(ghost, runs_u, vidx, live, stats)
+        looked = live
+        o12 = torch.zeros((), dtype=torch.int32, device=live.device)
+    else:
+        ru, rv, looked, o12, st = _endpoint_lookups(
+            lab, u, v, live, runs_u, runs_v, vidx, vps, cap_lookup,
+            axis_sizes, schedule, coalesce, stats)
     # dead-edge retirement: same component now => same forever
     dead = dead | (looked & (ru == rv))
     alive = looked & (ru != rv) & live
@@ -653,8 +881,13 @@ def _round_body(u, v, w, eid, live0, lab, mst, dead, runs_u, runs_v, vidx,
         lab, _, o5, st = _sharded_lookup(
             parent, lab, torch.ones_like(lab, dtype=torch.bool), vps,
             cap_label, axis_sizes, schedule, st, site="relabel")
-    go = has.any()
-    return lab, mst, dead, settled, go, o1 + o2 + o3 + o4 + o5, st
+    ovf = o12 + o3 + o4 + o5
+    if ghost is not None:
+        ghost, o6, st = _ghost_push(ghost, parent, vps, cap_push,
+                                    cap_push_col, axis_sizes, schedule, st,
+                                    grid_push)
+        ovf = ovf + o6
+    return lab, mst, dead, ghost, settled, has.any(), ovf, st
 
 
 class _Static(NamedTuple):
@@ -675,17 +908,21 @@ def _static_runs(u, v, valid, n: int, coalesce: bool, src_only: bool,
         else None)
 
 
-def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead, static: _Static,
-                    n: int, vps: int, axis_sizes: Sequence[int],
+def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead,
+                    ghost: Optional[GhostState], static: _Static, n: int,
+                    vps: int, axis_sizes: Sequence[int],
                     active: Optional[torch.Tensor], max_rounds: int,
-                    cap_edge: int, cap_label: int, cap_lookup: int, overflow,
+                    cap_edge: int, cap_label: int, cap_lookup: int,
+                    cap_push: int, cap_push_col: int, overflow,
                     stats: ExchangeStats, rounds, schedule: str,
                     coalesce: bool, src_only: bool, adaptive: bool,
-                    relabel_skip: bool, pallas_minedges: bool):
+                    relabel_skip: bool, pallas_minedges: bool,
+                    grid_push: bool):
     """Borůvka rounds with 1D-sharded labels (flat capacities).
 
     ``active`` optionally restricts the edge set (the filter levels);
-    ``dead`` persists across rounds and levels (labels only coarsen),
+    ``dead`` persists across rounds and levels (labels only coarsen), and
+    so does the ghost state (its tables follow the whole label vector);
     ``settled`` is per level (a new weight window revives edges).  Runs
     until no component chooses an edge or ``max_rounds``.
     """
@@ -694,27 +931,32 @@ def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead, static: _Static,
     r = 0
     go = True
     while go and r < max_rounds:
-        lab, mst, dead, settled, go_t, o, stats = _round_body(
+        lab, mst, dead, ghost, settled, go_t, o, stats = _round_body(
             u, v, w, eid, live0, lab, mst, dead, static.runs_u,
-            static.runs_v, static.vidx, settled, n, vps, axis_sizes,
-            cap_edge, cap_label, cap_lookup, cap_label, schedule, coalesce,
-            src_only, adaptive, relabel_skip, pallas_minedges, stats)
+            static.runs_v, static.vidx, ghost, settled, n, vps, axis_sizes,
+            cap_edge, cap_label, cap_lookup, cap_label, cap_push,
+            cap_push_col, schedule, coalesce, src_only, adaptive,
+            relabel_skip, pallas_minedges, grid_push, stats)
         overflow = overflow + o
         r += 1
         go = bool(go_t)
-    return lab, mst, dead, overflow, stats, rounds + r
+    return lab, mst, dead, ghost, overflow, stats, rounds + r
 
 
 def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
                       axis_sizes: Sequence[int], algorithm: str,
                       num_levels: int, max_rounds: Optional[int],
                       cap_edge: int, cap_label: int, cap_lookup: int,
-                      schedule: str, local_preprocessing: bool,
-                      coalesce: bool, src_only: bool, adaptive: bool,
+                      cap_push: int, cap_push_col: int, schedule: str,
+                      local_preprocessing: bool, coalesce: bool,
+                      src_only: bool, adaptive: bool, ghost: bool,
                       relabel_skip: bool, vsorted: bool,
-                      pallas_minedges: bool):
+                      pallas_minedges: bool, grid_push: bool):
     """The fused flat-capacity solve over stacked shards (``u/v/w/eid``
-    are [p, cap]).
+    are [p, cap]).  With ``ghost`` the ghost tables have one entry per
+    slot, the fills run at ``cap_lookup``, the subscription at
+    ``cap_label`` and the push at ``cap_push`` (the grid's second hop at
+    ``cap_push_col``).
 
     Returns (mask [p, cap], weight, count, lab [p, vps], overflow,
     CommStats) — the reference's per-shard program, all shards at once.
@@ -738,16 +980,28 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
         pre_mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
         dead = u == v  # self-loops can never be MSF candidates
     mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
-    static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted)
+    gs = None
+    if ghost:
+        cap = u.shape[1]
+        gs, vidx, runs_u, ovf, stats = _ghost_setup(
+            u, v, valid, valid & ~dead, lab, None, n, vps, cap, cap,
+            cap_lookup, cap_lookup, cap_label, axis_sizes, schedule, stats,
+            grid_push)
+        overflow = overflow + ovf
+        static = _Static(runs_u, None, vidx)
+    else:
+        static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted)
 
     common = dict(n=n, vps=vps, axis_sizes=axis_sizes, max_rounds=mr,
                   cap_edge=cap_edge, cap_label=cap_label,
-                  cap_lookup=cap_lookup, schedule=schedule,
+                  cap_lookup=cap_lookup, cap_push=cap_push,
+                  cap_push_col=cap_push_col, schedule=schedule,
                   coalesce=coalesce, src_only=src_only, adaptive=adaptive,
-                  relabel_skip=relabel_skip, pallas_minedges=pallas_minedges)
+                  relabel_skip=relabel_skip, pallas_minedges=pallas_minedges,
+                  grid_push=grid_push)
     if algorithm == "boruvka":
-        lab, mst, dead, overflow, stats, rounds = _sharded_rounds(
-            u, v, w, eid, valid, lab, mst, dead, static, active=None,
+        lab, mst, dead, gs, overflow, stats, rounds = _sharded_rounds(
+            u, v, w, eid, valid, lab, mst, dead, gs, static, active=None,
             overflow=overflow, stats=stats, rounds=rounds, **common)
     elif algorithm == "filter_boruvka":
         pivots = _weight_pivots(w, valid, num_levels)
@@ -756,9 +1010,10 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
             hi = pivots[lvl] if lvl < num_levels - 1 else torch.tensor(
                 float("inf"), dtype=torch.float32, device=dev)
             active = (w > lo) & (w <= hi)
-            lab, mst, dead, overflow, stats, rounds = _sharded_rounds(
-                u, v, w, eid, valid, lab, mst, dead, static, active=active,
-                overflow=overflow, stats=stats, rounds=rounds, **common)
+            lab, mst, dead, gs, overflow, stats, rounds = _sharded_rounds(
+                u, v, w, eid, valid, lab, mst, dead, gs, static,
+                active=active, overflow=overflow, stats=stats,
+                rounds=rounds, **common)
             lo = hi
     else:
         raise ValueError(algorithm)
@@ -944,28 +1199,121 @@ class _HostGraph:
         """Run starts of the v column in slot order."""
         return _host_run_starts(self.v, self.p)
 
+    def ghost_table_sizes(self) -> Tuple[int, int]:
+        """(Gu, Gv): the most source runs and the most v-sorted runs of
+        any shard, the host-exact sizes of the two ghost tables."""
+        def most(starts):
+            return max(1, int(np.bincount(starts // self.cap,
+                                          minlength=self.p).max()))
+        return most(self.u_starts), most(self.v_sorted_runs[1])
 
-def _lookup_bound(hg: _HostGraph, live: Optional[np.ndarray],
-                  vsorted: bool) -> int:
-    """``default_lookup_capacity`` over a ``_HostGraph``'s cached runs:
-    per (shard, owner), the live u runs in slot order and the live v
-    runs, through the v-sorted index or in slot order."""
+
+def _lookup_bounds(hg: _HostGraph, live: Optional[np.ndarray],
+                   vsorted: bool) -> Tuple[int, int]:
+    """Per (shard, owner), the most coalesced requests of the u column
+    (its live runs in slot order) and of the v column (its live runs
+    through the v-sorted index, or in slot order); 0 where none."""
     p, vps, shard = hg.p, hg.vps, hg.shard
     hu = _live_heads(hg.u_starts, live)
-    mx = max(1, _per_pair_max(shard[hu], hg.u[hu] // vps, p))
+    bu = _per_pair_max(shard[hu], hg.u[hu] // vps, p)
     if not vsorted:
         hv = _live_heads(hg.v_slot_starts, live)
-        return max(mx, _per_pair_max(shard[hv], hg.v[hv] // vps, p))
+        return bu, _per_pair_max(shard[hv], hg.v[hv] // vps, p)
     at, starts, real = hg.v_sorted_runs
     if live is None:
         hv = starts[real]
     else:
         hv = starts[real & np.logical_or.reduceat(live[at], starts)]
     skey = hg.vindex[1]
-    return max(mx, _per_pair_max(shard[hv], skey[hv] // vps, p))
+    return bu, _per_pair_max(shard[hv], skey[hv] // vps, p)
 
 
-def default_lookup_capacity(graph: DistGraph, num_shards: int, n: int,
+def _lookup_bound(hg: _HostGraph, live: Optional[np.ndarray],
+                  vsorted: bool) -> int:
+    """``default_lookup_capacity`` over a ``_HostGraph``'s cached runs."""
+    return max(1, *_lookup_bounds(hg, live, vsorted))
+
+
+def _ghost_fill_bounds(hg: _HostGraph, live: np.ndarray) -> Tuple[int, int]:
+    """Exact per-(shard, owner) request counts of the two ghost fills:
+    one request per distinct endpoint value with a live slot (u in slot
+    order, v through the v-sorted index)."""
+    bu, bv = _lookup_bounds(hg, live, True)
+    return max(1, bu), max(1, bv)
+
+
+def _host_ghost_table(hg: _HostGraph, live: np.ndarray) -> np.ndarray:
+    """``[p, p * vps]`` bool: shard s caches vertex x — x is an endpoint
+    of one of its live slots.  Entries of all-dead runs are never read
+    again, so they are neither filled nor subscribed."""
+    t = np.zeros((hg.p, hg.p * hg.vps), bool)
+    s = hg.shard[live]
+    t[s, hg.u[live]] = True
+    t[s, hg.v[live]] = True
+    return t
+
+
+def _root_table(table: np.ndarray, lab_h: np.ndarray) -> np.ndarray:
+    """``[p, nv]`` bool: shard s caches an entry whose root under
+    ``lab_h`` is r.  Labels are fixpoints at every round boundary (a
+    root's own label is itself), so a root table of an earlier round
+    maps to this round's like the vertices it came from, and shrinks
+    with the component count."""
+    s, x = np.nonzero(table)
+    out = np.zeros_like(table)
+    out[s, lab_h[x]] = True
+    return out
+
+
+def _subscribe_capacity_bound(roots: np.ndarray, p: int, vps: int) -> int:
+    """Exact per-(shard, owner) row count of the setup subscription: one
+    row per distinct cached root per shard (``roots`` from
+    ``_root_table``)."""
+    return max(1, int(roots.reshape(p, p, vps).sum(2).max()))
+
+
+def _push_capacity_bound(dirty: np.ndarray, p: int, vps: int) -> int:
+    """Bound on the round's flat push and forward rows.
+
+    ``dirty`` is the root table restricted to the components that chose
+    an edge: only those can merge, and a root's subscribers at the start
+    of the round are exactly the shards caching an entry with that root.
+    Push copies per (owner, subscriber), and forward rows per source
+    shard (their destination, the surviving root's owner, is not known
+    here).  Decays with the alive-component count."""
+    if not dirty.any():
+        return 1
+    per_pair = int(dirty.reshape(p, p, vps).sum(2).max())
+    forward = int(dirty.any(0).reshape(p, vps).sum(1).max())
+    return max(1, per_pair, forward)
+
+
+def _push_capacity_bound_grid(dirty: np.ndarray, R: int, C: int,
+                              vps: int) -> Tuple[int, int]:
+    """Bounds of the two grid push hops over the same ``dirty`` table.
+
+    The device ships the cross product of the per-axis masks, so both
+    bounds count it: hop 1 copies per (owner, destination column), with
+    the forward leg's rows per source shard, which share its capacity;
+    hop 2 copies per (deputy (ri, cc), destination row), the dirty roots
+    owned in row ri with a subscriber in column cc and one in the row.
+    Returns (bound_row, bound_col), each >= 1."""
+    p = R * C
+    rows = dirty.reshape(R, C, -1).any(1)  # [R, nv]: a subscriber in row
+    cols = dirty.reshape(R, C, -1).any(0)  # [C, nv]: ... in column
+    some = rows.any(0)
+    if not some.any():
+        return 1, 1
+    b_row = max(1, int(cols.reshape(C, p, vps).sum(2).max()),
+                int(some.reshape(p, vps).sum(1).max()))
+    # [owner row, dest row, col]: roots owned in the row with both bits
+    by_row = rows.reshape(R, R, C * vps).transpose(1, 0, 2).astype(np.float64)
+    by_col = cols.reshape(C, R, C * vps).transpose(1, 2, 0).astype(np.float64)
+    b_col = max(1, int(np.matmul(by_row, by_col).max()))
+    return b_row, b_col
+
+
+def default_lookup_capacity(graph: DistGraph, num_shards, n: int,
                             alive: Optional[np.ndarray] = None,
                             vsorted: bool = True,
                             vindex: Optional[Tuple[np.ndarray,
@@ -982,31 +1330,54 @@ def default_lookup_capacity(graph: DistGraph, num_shards: int, n: int,
     v-sorted index, ``(perm, skey)`` as the reference's ``_host_v_perm``
     returns it.
     """
-    hg = _HostGraph(graph, num_shards, n)
+    hg = _HostGraph(graph, math.prod(shard_layout(num_shards)), n)
     if vindex is not None:
         hg.vindex = vindex
     return _lookup_bound(hg, None if alive is None else np.asarray(alive),
                          vsorted)
 
 
+class _GhostCfg(NamedTuple):
+    """The ghost cache as the shrinking driver sizes it."""
+    grid: bool                    # the grid push, on an (R, C) layout
+    axis_sizes: Tuple[int, ...]
+    push_capacity: Optional[int]  # a pinned push capacity, else None
+
+
 class _RoundCaps(NamedTuple):
-    """One round's host-bounded capacities (ladder rungs) and what the
-    driver keeps of the bounds."""
+    """One round's host-bounded capacities (ladder rungs), what the
+    driver keeps of the bounds, and the round's lookup mode."""
     bound_e: int
     cap_edge: int
     cap_lookup: int
     cap_contract: int
     cap_relabel: int
     choosing: np.ndarray  # [p * vps] bool: components with a candidate
+    ghost: bool           # the round reads the ghost tables
+    cap_push: int
+    cap_push_col: int
+    cap_push_flat: int    # the flat push bound (0 without the cache)
+    coalesce: bool        # the lookups' levers, after a cache fallback
+    vsorted: bool
 
 
 def _host_round_caps(hg: _HostGraph, lab_h: np.ndarray, live_h: np.ndarray,
                      settled_h: np.ndarray, ce_full: int, cl: int,
                      lk_full: int, coalesce: bool, src_only: bool,
-                     relabel_skip: bool, vsorted: bool) -> _RoundCaps:
+                     relabel_skip: bool, vsorted: bool,
+                     ghost: Optional[_GhostCfg] = None,
+                     roots: Optional[np.ndarray] = None) -> _RoundCaps:
     """The coming round's exact bounds from the host label table and live
     mask, each snapped up onto its ``shrink_schedule`` ladder, and the
-    components that have a candidate (``choosing``)."""
+    components that have a candidate (``choosing``).
+
+    ``ghost`` is the solve's cache (None without it) and ``roots`` its
+    root table for this round (None once the cache has been dropped).
+    The push is sized from the roots that chose an edge; a pinned
+    ``push_capacity`` below that bound drops the cache for the rest of
+    the solve (``ghost`` False in the result), and every round without
+    it then runs coalesced lookups through the v-sorted index.
+    """
     p, vps, shard = hg.p, hg.vps, hg.shard
     ru_h = lab_h[hg.u]
     rv_h = lab_h[hg.v]
@@ -1016,19 +1387,43 @@ def _host_round_caps(hg: _HostGraph, lab_h: np.ndarray, live_h: np.ndarray,
     choosing[ru_h[cand]] = True  # ru is constant along a source run
     bound_e = _minedges_capacity_bound(ru_h, rv_h, alive_h, shard, cand, p,
                                        vps, src_only)
-    if coalesce:
-        lk = _lookup_bound(hg, live_h, vsorted)
+    on = roots is not None
+    cp, cpc, flat = 1, 0, 0
+    if on:
+        dirty = roots & choosing
+        flat = _push_capacity_bound(dirty, p, vps)
+        pb = flat
+        if ghost.grid:
+            R, C = ghost.axis_sizes
+            pb, pbc = _push_capacity_bound_grid(dirty, R, C, vps)
+            # a deputy relays at most every owned root once per column
+            cpc = quantize_capacity(pbc, C * vps)
+        cp = quantize_capacity(pb, vps) if ghost.push_capacity is None \
+            else int(ghost.push_capacity)
+        if cp < pb:
+            # a pinned push capacity that cannot hold the round's dirty
+            # roots would leave stale ghost entries: drop the cache and
+            # finish with exact lookups
+            on, cp, cpc = False, 1, 0
+    fallback = ghost is not None and not on
+    coalesce = coalesce or fallback
+    vsorted = vsorted or fallback
+    if on:
+        lk = 1  # no endpoint lookup runs
+    elif coalesce:
+        lk = quantize_capacity(_lookup_bound(hg, live_h, vsorted), lk_full)
     else:
-        lk = _endpoint_lookup_bound(hg.u, hg.v, live_h, shard, p, vps)
+        lk = quantize_capacity(_endpoint_lookup_bound(hg.u, hg.v, live_h,
+                                                      shard, p, vps),
+                               lk_full)
     rl = quantize_capacity(_relabel_capacity_bound(lab_h, settled_h, p,
                                                    vps), cl) \
         if relabel_skip else cl
     return _RoundCaps(
-        bound_e, quantize_capacity(bound_e, ce_full),
-        quantize_capacity(lk, lk_full),
+        bound_e, quantize_capacity(bound_e, ce_full), lk,
         quantize_capacity(_contract_capacity_bound(choosing, rv_h, alive_h,
                                                    vps), cl),
-        rl, choosing)
+        rl, choosing, on, cp, cpc, flat, coalesce, vsorted)
 
 
 # --------------------------------------------------------------------------
@@ -1041,34 +1436,37 @@ def _stat_values(st: ExchangeStats) -> np.ndarray:
 
 
 def _sharded_round_step(u, v, w, eid, static: _Static, lab, mst, dead,
-                        settled, lo: float, hi: float, n: int, vps: int,
+                        ghost: Optional[GhostState], settled, lo: float,
+                        hi: float, n: int, vps: int,
                         axis_sizes: Sequence[int], caps: _RoundCaps,
-                        schedule: str, coalesce: bool, src_only: bool,
-                        adaptive: bool, relabel_skip: bool,
-                        pallas_minedges: bool):
+                        schedule: str, src_only: bool, adaptive: bool,
+                        relabel_skip: bool, pallas_minedges: bool,
+                        grid_push: bool):
     """One driver round at its own capacities, counted from zero (the
     reference's ``_sharded_round_shard_fn``).  Returns (lab, mst, dead,
-    settled, go, overflow, stats)."""
+    ghost, settled, go, overflow, stats)."""
     lo_t = torch.tensor(lo, dtype=torch.float32, device=w.device)
     hi_t = torch.tensor(hi, dtype=torch.float32, device=w.device)
     live0 = torch.isfinite(w) & (w > lo_t) & (w <= hi_t)
     return _round_body(
         u, v, w, eid, live0, lab, mst, dead, static.runs_u, static.runs_v,
-        static.vidx, settled, n, vps, axis_sizes, caps.cap_edge,
-        caps.cap_relabel, caps.cap_lookup, caps.cap_contract, schedule,
-        coalesce, src_only, adaptive, relabel_skip, pallas_minedges,
-        ExchangeStats.zeros(u.device))
+        static.vidx, ghost if caps.ghost else None, settled, n, vps,
+        axis_sizes, caps.cap_edge, caps.cap_relabel, caps.cap_lookup,
+        caps.cap_contract, caps.cap_push, caps.cap_push_col, schedule,
+        caps.coalesce, src_only, adaptive, relabel_skip, pallas_minedges,
+        grid_push and caps.ghost, ExchangeStats.zeros(u.device))
 
 
 def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
-                            p: int, algorithm: str, num_levels: int,
-                            max_rounds: Optional[int], ce_full: int,
-                            cl: int, lk_full: int, schedule: str,
-                            local_preprocessing: bool, coalesce: bool,
-                            src_only: bool, adaptive: bool,
-                            relabel_skip: bool, vsorted: bool,
+                            axis_sizes: Sequence[int], algorithm: str,
+                            num_levels: int, max_rounds: Optional[int],
+                            ce_full: int, cl: int, lk_full: int,
+                            schedule: str, local_preprocessing: bool,
+                            coalesce: bool, src_only: bool, adaptive: bool,
+                            ghost_cache: bool, relabel_skip: bool,
+                            vsorted: bool, push_capacity: Optional[int],
                             round_trace: Optional[List[dict]],
-                            pallas_minedges: bool):
+                            pallas_minedges: bool, grid_push: bool):
     """Host-driven rounds with per-round shrinking capacities.
 
     Runs the same ``_round_body`` as the fused engine one round at a
@@ -1078,12 +1476,21 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     result equals the flat engine's; a level whose MINEDGES bound is 0
     skips its trailing empty round, so ``rounds`` counts only the rounds
     executed.  A round with overflow ends the solve (the labels are
-    garbage by contract).  ``round_trace`` gets one dict per round,
-    field for field the reference's.  Returns the engine's 6-tuple on
-    the graph's device; the weight is the float64 host sum of the
-    masked slots, rounded to float32, as the reference's driver does.
+    garbage by contract).
+
+    With ``ghost_cache`` the ghost tables are sized host-exactly (the
+    most runs of a shard), the fills at their exact request bounds and
+    the subscription at its distinct-root bound; each round's push is
+    sized from the root table, and a pinned ``push_capacity`` below it
+    drops the cache for the rest of the solve, which then finishes with
+    exact coalesced lookups (``ghost`` False in the trace).
+
+    ``round_trace`` gets one dict per round, field for field the
+    reference's.  Returns the engine's 6-tuple on the graph's device;
+    the weight is the float64 host sum of the masked slots, rounded to
+    float32, as the reference's driver does.
     """
-    axis_sizes = (p,)
+    p = math.prod(axis_sizes)
     vps, cap = hg.vps, hg.cap
     dev = graph.u.device
     mr = (math.ceil(math.log2(max(n, 2))) + 1) if max_rounds is None \
@@ -1107,8 +1514,28 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
         dead = u == v
     mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
     dead_h = dead.cpu().numpy().reshape(-1)
-    static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted,
-                          hg.vperm if (coalesce and vsorted) else None)
+
+    gs = roots = cfg = None
+    if ghost_cache:
+        live_h = hg.valid & ~dead_h
+        lab_h = lab.cpu().numpy().reshape(-1)
+        roots = _root_table(_host_ghost_table(hg, live_h), lab_h)
+        Gu, Gv = hg.ghost_table_sizes()
+        bu, bv = _ghost_fill_bounds(hg, live_h)
+        gs, vidx, runs_u, ovf, st = _ghost_setup(
+            u, v, valid, valid & ~dead, lab, hg.vperm, n, vps, Gu, Gv,
+            quantize_capacity(bu, lk_full), quantize_capacity(bv, lk_full),
+            quantize_capacity(_subscribe_capacity_bound(roots, p, vps), vps),
+            axis_sizes, schedule, ExchangeStats.zeros(dev), grid_push)
+        overflow += int(ovf)
+        acc += _stat_values(st)
+        cfg = _GhostCfg(grid_push, tuple(axis_sizes), push_capacity)
+        # after a fallback the rounds look up through the setup's
+        # v-sorted index whatever ``vsorted`` says
+        static = _Static(runs_u, None, vidx)
+    else:
+        static = _static_runs(u, v, valid, n, coalesce, src_only, vsorted,
+                              hg.vperm if (coalesce and vsorted) else None)
 
     if algorithm == "boruvka":
         windows = [(-np.inf, np.inf)]
@@ -1133,16 +1560,20 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                 # would poison the host bounds, so stop and report
                 break
             lab_h = lab.cpu().numpy().reshape(-1)
+            if roots is not None:
+                roots = _root_table(roots, lab_h)
             caps = _host_round_caps(hg, lab_h, active_h & ~dead_h,
                                     settled_h, ce_full, cl, lk_full,
                                     coalesce, src_only, relabel_skip,
-                                    vsorted)
+                                    vsorted, cfg, roots)
+            if not caps.ghost:
+                roots = None  # the cache is dropped for good
             if caps.bound_e == 0:
                 break  # no candidate exists: go would come back False
-            lab, mst, dead, settled, go, ovf, st = _sharded_round_step(
-                u, v, w, eid, static, lab, mst, dead, settled, lo, hi, n,
-                vps, axis_sizes, caps, schedule, coalesce, src_only,
-                adaptive, relabel_skip, pallas_minedges)
+            lab, mst, dead, gs, settled, go, ovf, st = _sharded_round_step(
+                u, v, w, eid, static, lab, mst, dead, gs, settled, lo, hi,
+                n, vps, axis_sizes, caps, schedule, src_only, adaptive,
+                relabel_skip, pallas_minedges, grid_push)
             overflow += int(ovf)
             stv = _stat_values(st)
             acc += stv
@@ -1160,8 +1591,11 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                     "cap_lookup": caps.cap_lookup,
                     "cap_contract": caps.cap_contract,
                     "cap_relabel": caps.cap_relabel,
-                    "cap_push": 1, "cap_push_col": 0, "cap_push_flat": 0,
-                    "grid_push": False, "ghost": False,
+                    "cap_push": caps.cap_push,
+                    "cap_push_col": caps.cap_push_col,
+                    "cap_push_flat": caps.cap_push_flat,
+                    "grid_push": bool(grid_push and caps.ghost),
+                    "ghost": caps.ghost,
                     "alive_bound": caps.bound_e,
                     "minedges_buffer_bytes": minedges_buffer_bytes(
                         p, caps.cap_edge, hops, src_only),
@@ -1207,7 +1641,62 @@ def _unported(what: str, item: str) -> NotImplementedError:
         f"{item})")
 
 
-def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
+def shard_layout(num_shards) -> Tuple[int, ...]:
+    """The shard layout's axis sizes: ``(p,)`` for an int, ``(R, C)``
+    for a pair — the reference's ``Mesh(devices.reshape(R, C), ("row",
+    "col"))``, shard s at ``(s // C, s % C)``."""
+    sizes = tuple(int(x) for x in num_shards) \
+        if isinstance(num_shards, (tuple, list)) else (int(num_shards),)
+    if not sizes or min(sizes) < 1:
+        raise ValueError(f"num_shards must be a positive int or a tuple of "
+                         f"them, got {num_shards!r}")
+    return sizes
+
+
+def _ghost_push_mode(ghost_cache: bool, mode: Optional[str],
+                     axis_sizes: Sequence[int],
+                     limit: Optional[int]) -> Tuple[bool, bool]:
+    """Select the ghost push for this layout: ``(ghost_on, grid)``.
+
+    The auto ladder (``mode`` None) takes the flat push when ``p`` fits
+    one mask (``p <= min(limit, 31)``), else the grid push on an
+    ``(R, C)`` layout whose axes each fit one, else no cache.  ``limit``
+    is ``ghost_shard_limit`` (None means 31).  An explicit ``"flat"`` or
+    ``"grid"`` that the layout cannot honour raises; it is never
+    downgraded.
+    """
+    p = math.prod(axis_sizes)
+    if not ghost_cache:
+        return False, False
+    width = min(MAX_GHOST_SHARDS if limit is None else int(limit),
+                MAX_GHOST_SHARDS)
+    if mode == "flat":
+        if p > MAX_GHOST_SHARDS:
+            raise ValueError(
+                f"ghost_push='flat' needs p <= {MAX_GHOST_SHARDS} "
+                f"(int32 subscriber bitmask), got p={p}")
+        return True, False
+    if mode == "grid":
+        if len(axis_sizes) != 2:
+            raise ValueError(
+                "ghost_push='grid' needs an (R, C) layout, got "
+                f"{len(axis_sizes)} axes {tuple(axis_sizes)}")
+        if max(axis_sizes) > MAX_GHOST_SHARDS:
+            raise ValueError(
+                f"ghost_push='grid' needs every axis <= {MAX_GHOST_SHARDS}, "
+                f"got {tuple(axis_sizes)}")
+        return True, True
+    if mode is not None:
+        raise ValueError(f"unknown ghost_push mode {mode!r}; one of None "
+                         "(auto), 'flat', 'grid'")
+    if p <= width:
+        return True, False
+    if len(axis_sizes) == 2 and max(axis_sizes) <= width:
+        return True, True
+    return False, False
+
+
+def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
                             algorithm: str = "boruvka",
                             num_levels: int = 4,
                             max_rounds: Optional[int] = None,
@@ -1237,8 +1726,10 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
     shards on the graph's device.
 
     The reference's signature and defaults, with ``num_shards`` where the
-    reference takes a mesh.  Returns (mask, weight, count, labels,
-    overflow, stats):
+    reference takes a mesh: an int ``p``, or an ``(R, C)`` pair for the
+    reference's two-axis mesh (``shard_layout``), on which the grid
+    schedule takes one hop per axis.  Returns (mask, weight, count,
+    labels, overflow, stats):
 
       * ``mask`` [p * cap] bool is aligned with ``graph`` slots, exactly
         one directed copy of each MSF edge marked (the canonical u < v
@@ -1255,54 +1746,66 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards: int, *,
     per round; ``shrink_capacities=False`` runs the fused flat-capacity
     engine, whose ``round_trace`` stays empty, as in the reference.
     ``lookup_capacity`` defaults to the exact coalesced-run bound
-    (``default_lookup_capacity``) under ``coalesce``, else to the edge
+    (``default_lookup_capacity``, through the v-sorted index when it or
+    the cache is on) under ``coalesce`` or the cache, else to the edge
     capacity.  ``pallas_minedges=True`` routes both MINEDGES reductions
     through K1 (the CUDA kernel on the card, its plain version on the
-    CPU).  ``ghost_cache=True`` — the reference's default — raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 8, ghost cache), as
-    do ``plan`` (item 9) and the checkpoint arguments (item 10); pass
-    ``ghost_cache=False``.  ``ghost_push``, ``push_capacity`` and
-    ``ghost_shard_limit`` only act with the cache and are ignored
-    without it, as in the reference.
+    CPU).
+
+    ``ghost_cache=True`` keeps per-shard ghost tables of the endpoint
+    labels: filled once, read locally every round, kept coherent by a
+    root-delta push after each contraction.  ``ghost_push`` picks the
+    push (``_ghost_push_mode``: None walks flat → grid → off,
+    ``"flat"``/``"grid"`` pin a rung and raise where the layout cannot
+    take it); ``ghost_shard_limit`` caps the mask width of both rungs
+    (31).  ``push_capacity`` pins the push exchange: the shrinking
+    driver then drops the cache in a round whose push bound it cannot
+    hold, the fused engine reports the overflow.  ``plan`` (ROADMAP.md
+    queue 1 item 9) and the checkpoint arguments (item 10) raise
+    ``NotImplementedError``.
     """
     if plan is not None:
         raise _unported("plan replay", "item 9 (plans and planned replay)")
     if (ckpt_every is not None or ckpt_out is not None
             or resume_from is not None):
         raise _unported("checkpointing", "item 10 (checkpoints)")
-    if ghost_cache:
-        raise _unported("ghost_cache=True",
-                        "item 8, ghost cache; pass ghost_cache=False")
-    p = int(num_shards)
+    axis_sizes = shard_layout(num_shards)
+    p = math.prod(axis_sizes)
+    ghost_cache, grid_push = _ghost_push_mode(ghost_cache, ghost_push,
+                                              axis_sizes, ghost_shard_limit)
     vps = vertices_per_shard(n, p)
     cap = graph.cap_total // p
     # is-None (not falsy) checks: an explicit 0 must be honored — it
     # yields all-overflow results, which the overflow count reports
     ce = int(cap if edge_capacity is None else edge_capacity)
     cl = int(vps if label_capacity is None else label_capacity)
-    hg = _HostGraph(graph, p, n) if (coalesce or shrink_capacities) \
-        else None
+    hg = _HostGraph(graph, p, n) \
+        if (coalesce or shrink_capacities or ghost_cache) else None
     if lookup_capacity is not None:
         lk = int(lookup_capacity)
-    elif coalesce:
-        lk = _lookup_bound(hg, None, vsorted_index)
+    elif coalesce or ghost_cache:
+        lk = _lookup_bound(hg, None, vsorted_index or ghost_cache)
     else:
         lk = ce
     if shrink_capacities:
         return _shrinking_capacity_msf(
-            graph, hg, n, p, algorithm, num_levels, max_rounds, ce, cl, lk,
-            schedule, local_preprocessing, coalesce, src_only,
-            adaptive_doubling, relabel_skip, vsorted_index, round_trace,
-            pallas_minedges)
+            graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce,
+            cl, lk, schedule, local_preprocessing, coalesce, src_only,
+            adaptive_doubling, ghost_cache, relabel_skip, vsorted_index,
+            push_capacity, round_trace, pallas_minedges, grid_push)
+    cp = int(vps if push_capacity is None else push_capacity)
+    # the fused engine has no bound for the deputy hop: a deputy relays
+    # at most one full first-hop buffer per column
+    cpc = cp * axis_sizes[1] if grid_push else 0
 
     def shards(x):
         return x.view(p, cap)
 
     mask, weight, count, lab, overflow, comm = _sharded_shard_fn(
         shards(graph.u), shards(graph.v), shards(graph.w),
-        shards(graph.eid), n, vps, (p,), algorithm, num_levels,
-        max_rounds, ce, cl, lk, schedule, local_preprocessing, coalesce,
-        src_only, adaptive_doubling, relabel_skip, vsorted_index,
-        pallas_minedges)
+        shards(graph.eid), n, vps, axis_sizes, algorithm, num_levels,
+        max_rounds, ce, cl, lk, cp, cpc, schedule, local_preprocessing,
+        coalesce, src_only, adaptive_doubling, ghost_cache, relabel_skip,
+        vsorted_index, pallas_minedges, grid_push)
     return (mask.reshape(-1), weight, count, lab.reshape(-1), overflow,
             comm)

@@ -10,13 +10,17 @@ on ``engine``:
     ``**kw`` goes to ``filter_boruvka_dynamic``);
   * ``"distributed_sharded"`` — the sharded-label engine over
     ``num_shards`` stacked shards (``core/distributed_sharded.py``; the
-    reference takes a mesh here).  Engine knobs pass through ``**kw``.
+    reference takes a mesh here): an int ``p``, or an ``(R, C)`` pair
+    for the reference's two-axis mesh.  With no engine knobs it runs
+    the reference's defaults, the ghost-vertex label cache included;
+    knobs pass through ``**kw``.
 
 ``engine="distributed"`` (the replicated mesh engine) is not ported yet
 and raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -24,14 +28,15 @@ import torch
 
 from repro_torch.core.boruvka import boruvka_msf
 from repro_torch.core.distributed import build_dist_graph
-from repro_torch.core.distributed_sharded import distributed_sharded_msf
+from repro_torch.core.distributed_sharded import (distributed_sharded_msf,
+                                                  shard_layout)
 from repro_torch.core.filter_boruvka import (boruvka_dynamic,
                                              filter_boruvka_dynamic,
                                              filter_boruvka_msf)
 from repro_torch.core.graph import EdgeList, forest_weight
 
 
-def _sharded_dispatch(edges: EdgeList, num_shards: int, algorithm: str,
+def _sharded_dispatch(edges: EdgeList, num_shards, algorithm: str,
                       **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bridge the single-array public API onto the sharded engine.
 
@@ -46,8 +51,8 @@ def _sharded_dispatch(edges: EdgeList, num_shards: int, algorithm: str,
     v = edges.v.cpu().numpy()
     w = edges.w.cpu().numpy()
     idx = np.nonzero(np.isfinite(w))[0]
-    g, _ = build_dist_graph(u[idx], v[idx], w[idx], edges.n, num_shards,
-                            device=dev)
+    g, _ = build_dist_graph(u[idx], v[idx], w[idx], edges.n,
+                            math.prod(shard_layout(num_shards)), device=dev)
     res = distributed_sharded_msf(g, edges.n, num_shards,
                                   algorithm=algorithm, **kw)
     overflow = int(res[4])
@@ -65,7 +70,7 @@ def _sharded_dispatch(edges: EdgeList, num_shards: int, algorithm: str,
 def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
                             engine: str = "static",
                             num_buckets: Optional[int] = None,
-                            num_shards: Optional[int] = None,
+                            num_shards=None,
                             **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compute an MSF on the edges' device. Returns (mask over edges,
     total weight).
@@ -73,7 +78,7 @@ def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
     ``num_buckets`` controls filter_boruvka's weight bucketing; each
     engine keeps its own default when it is not given (static: 8, the
     sharded engine's ``num_levels``: 4).  ``num_shards`` is the shard
-    count of the distributed engines.
+    layout of the distributed engines: a count, or an ``(R, C)`` pair.
     """
     if num_buckets is not None and num_buckets < 1:
         raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")

@@ -250,32 +250,35 @@ def test_build_dist_graph_layout_matches_reference(family):
 
 
 def test_unported_levers_raise():
-    """The port's boundary: every lever runs but the ghost cache, which
-    raises naming its ROADMAP item (also on the reference's defaults),
-    as do plan replay, the checkpoint arguments and the replicated
-    engine."""
+    """The port's boundary: every lever runs, the ghost cache included
+    (also on the reference's defaults); a ghost push the layout cannot
+    take raises, never downgraded; plan replay, the checkpoint arguments
+    and the replicated engine raise naming their ROADMAP item."""
     u, v, w, n = FAMILIES["random"](0)
     g, _ = build_dist_graph(u, v, w, n, P, device=CPU)
-    ghost = r"^ghost_cache=True is not ported .*item 8, ghost cache"
-    with pytest.raises(NotImplementedError, match=ghost):
-        distributed_sharded_msf(g, n, P)  # the reference's defaults
+    res = distributed_sharded_msf(g, n, P)  # the reference's defaults
+    assert int(res[4]) == 0 and float(res[5].hits) > 0
     for kw in (dict(OFF, ghost_cache=True),
                dict(shrink_capacities=False),
                dict(OFF, ghost_cache=True, ghost_push="flat",
                     push_capacity=4)):
-        with pytest.raises(NotImplementedError, match=ghost):
-            distributed_sharded_msf(g, n, P, **kw)
+        res = distributed_sharded_msf(g, n, P, **kw)
+        assert float(res[5].hits) > 0, kw
     for lever in OFF:
-        if lever != "ghost_cache":
-            res = distributed_sharded_msf(g, n, P,
-                                          **dict(OFF, **{lever: True}))
-            assert int(res[4]) == 0, lever
+        res = distributed_sharded_msf(g, n, P, **dict(OFF, **{lever: True}))
+        assert int(res[4]) == 0, lever
+    with pytest.raises(ValueError, match="needs an \\(R, C\\) layout"):
+        distributed_sharded_msf(g, n, P, ghost_push="grid")
+    with pytest.raises(ValueError, match="needs p <= 31"):
+        distributed_sharded_msf(g, n, (8, 4), ghost_push="flat")
+    with pytest.raises(ValueError, match="unknown ghost_push"):
+        distributed_sharded_msf(g, n, P, ghost_push="ring")
     with pytest.raises(NotImplementedError, match="item 9"):
-        distributed_sharded_msf(g, n, P, plan=object(), ghost_cache=False)
+        distributed_sharded_msf(g, n, P, plan=object())
     for ckpt in (dict(ckpt_every=2), dict(ckpt_out=[]),
                  dict(resume_from=object())):
         with pytest.raises(NotImplementedError, match="item 10"):
-            distributed_sharded_msf(g, n, P, ghost_cache=False, **ckpt)
+            distributed_sharded_msf(g, n, P, **ckpt)
     edges = from_numpy(u, v, w, n, device=CPU)
     with pytest.raises(NotImplementedError, match="item 6"):
         minimum_spanning_forest(edges, engine="distributed",
