@@ -30,6 +30,21 @@ Phases, each fatal on failure (exit 1):
      match scipy's MST weight within 1e-3 relative with
      n - #components edges.  The time spent in the driver's host bounds
      is reported apart;
+  3d. (run right after phase 3's cached path) plan and replay the main
+     path on phase 3's prebuilt layout, for each algorithm:
+     ``plan_sharded_msf(pallas_minedges=True)`` timed (the measurement
+     pass), its JSON round-tripped, then
+     ``execute_plan(replan=False)`` once to warm up and once timed with
+     the counts set to 0: its mask must equal phase 3's driven solve,
+     overflow 0, weight and edge count as scipy's, no host bound called,
+     K1 at both sites in every round that is not a sentinel.  The
+     replay, measurement and driven engine times are printed side by
+     side.  Then (boruvka) ``plan.pad(0.5)`` replayed with replans
+     allowed on the same u, v with the weights shuffled by
+     ``default_rng(1)``, whose forest weight must equal scipy's; and on
+     RMAT a plan cut to 2 rounds and one with ``cap_edge=1`` must raise
+     under ``replan=False`` and give the driven mask under
+     ``replan=True``;
   3b. the earlier paths, each checked the same way: the lever path
      (``ghost_cache=False``, every other lever on), whose edge set the
      cached path must equal while serving hits, pushing, and shipping
@@ -733,6 +748,170 @@ def kruskal_check(kmask, mask, what):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: plan the main path and replay it
+# ---------------------------------------------------------------------------
+
+def plan_and_replay(dev, g, n, algorithm, driven, ref_weight, ref_count):
+    """Measure a plan of the main path on the prebuilt layout ``g``,
+    round-trip its JSON, and replay it strictly: one warm-up, then the
+    counted replay with the counts set to 0 just before it.  ``driven``
+    holds phase 3's driven solve on the same layout (mask, engine
+    seconds, host-bound seconds).  Returns (plan, a dict of figures)."""
+    import torch
+    from repro_torch.core import distributed_sharded as ds
+    from repro_torch.core.plan import RoundPlan
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+
+    torch.cuda.synchronize()
+    with HostBounds() as measure_host:
+        t0 = time.perf_counter()
+        measured = ds.plan_sharded_msf(g, n, NUM_SHARDS,
+                                       algorithm=algorithm,
+                                       pallas_minedges=True)
+        torch.cuda.synchronize()
+        measure_s = time.perf_counter() - t0
+    text = measured.to_json()
+    plan = RoundPlan.from_json(text)
+    check(plan == measured and plan.to_json() == text,
+          f"plan {algorithm}: the JSON round trip changed the plan")
+    sentinels = sum(r.sentinel for r in plan.rounds)
+    log(f"plan gnm {algorithm}: {plan.num_rounds} rounds ({sentinels} "
+        f"sentinels) over {len(plan.level_bounds)} levels; ghost tables "
+        f"{plan.ghost.table_u} x {plan.ghost.table_v}, fills "
+        f"{plan.ghost.cap_fill_u}/{plan.ghost.cap_fill_v}, subscription "
+        f"{plan.ghost.cap_subscribe}; JSON {len(text)} B; cap_edge per "
+        f"round {[r.cap_edge for r in plan.rounds]}")
+    ds.execute_plan(g, n, NUM_SHARDS, plan, replan=False)  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    trace = []
+    reset_counts()
+    with K1Sites() as sites, HostBounds() as host:
+        t0 = time.perf_counter()
+        res = ds.execute_plan(g, n, NUM_SHARDS, plan, replan=False,
+                              round_trace=trace)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    k1 = owner_scatter_min.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mask, weight, count, _, overflow, _ = res
+    rel = abs(float(weight) - ref_weight) / ref_weight
+    check(int(overflow) == 0, f"replay {algorithm}: overflow "
+          f"{int(overflow)}")
+    check(torch.equal(mask, driven["mask"]), f"replay {algorithm}: the "
+          "mask differs from phase 3's driven solve on the same layout")
+    check(int(count) == ref_count, f"replay {algorithm}: {int(count)} MSF "
+          f"edges, scipy {ref_count}")
+    check(rel < 1e-3, f"replay {algorithm}: weight off by {rel:.2e} "
+          "relative")
+    check(host.calls == 0 and trace == [],
+          f"replay {algorithm}: a fitting replay ran {host.calls} host "
+          "bound calls or filled the round trace")
+    real = plan.num_rounds - sentinels
+    check(k1 == sites.combine + sites.owner,
+          f"replay {algorithm}: K1 launched outside its two sites")
+    check(sites.combine >= real and sites.owner >= real,
+          f"replay {algorithm}: K1 must launch at both MINEDGES sites in "
+          f"each of the {real} rounds that are not sentinels (per-run "
+          f"combine {sites.combine}, owner-side {sites.owner})")
+    saved = driven["engine_s"] - replay_s
+    repays = measure_s / saved if saved > 0 else float("inf")
+    stats = {f: float(x) for f, x in zip(res[5]._fields, res[5])}
+    log(f"replay gnm {algorithm}: strict replay {replay_s:.3f} s (after one "
+        f"warm-up) against phase 3's driven engine {driven['engine_s']:.3f} s "
+        f"({driven['host_s']:.3f} s of it host bounds) on the same layout; "
+        f"measurement pass {measure_s:.3f} s ({measure_host.seconds:.3f} "
+        f"s of it host bounds), repaid by {repays:.2f} "
+        f"replays in place of driven solves; mask equals the driven "
+        f"solve's, overflow 0, residual 0, no host bound ran; edges "
+        f"{int(count)} (scipy {ref_count}); weight {float(weight):.1f} "
+        f"(scipy {ref_weight:.1f}, rel {rel:.2e}); K1 launches {k1} "
+        f"(per-run combine {sites.combine}, owner-side {sites.owner}) over "
+        f"{plan.num_rounds} planned rounds; peak device memory "
+        f"{peak:.2f} GiB, {held:.2f} GiB of it held before the replay (the "
+        f"layout, phase 3's masks and K1 inputs kept for phase 5); "
+        f"CommStats {json.dumps(stats)}")
+    return plan, dict(replay_s=replay_s, measure_s=measure_s, peak=peak,
+                      rounds=plan.num_rounds, sentinels=sentinels,
+                      combine=sites.combine, owner=sites.owner, total=k1)
+
+
+def replay_second_graph(dev, u, v, w, n, g, plan):
+    """The same u, v with weights shuffled by ``default_rng(1)``, laid
+    out again, and ``plan.pad(0.5)`` replayed on it with replans allowed:
+    its forest's float64 weight must equal scipy's MST weight (the MSF
+    weight is unique even where the MSF is not) with n - #components
+    edges.  Returns whether the plan fitted."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed_sharded as ds
+    from repro_torch.core.distributed import build_dist_graph
+
+    w2 = np.asarray(w).copy()
+    np.random.default_rng(1).shuffle(w2)
+    g2, _ = build_dist_graph(u, v, w2, n, NUM_SHARDS, device=dev)
+    check(g2.cap_total == g.cap_total, "second graph: the layout's "
+          f"capacity {g2.cap_total} differs from the plan's {g.cap_total}")
+    trace = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ds.execute_plan(g2, n, NUM_SHARDS, plan.pad(0.5), replan=True,
+                          round_trace=trace)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # the chosen undirected edges, each once by eid, summed in float64
+    sel = np.unique(g2.eid.cpu().numpy()[res[0].cpu().numpy()])
+    got, edges = float(np.sum(w2[sel].astype(np.float64))), len(sel)
+    exp, exp_edges = scipy_msf(u, v, w2, n)
+    check(int(res[4]) == 0, f"second graph: overflow {int(res[4])}")
+    check(edges == exp_edges == int(res[2]),
+          f"second graph: {edges} MSF edges, scipy {exp_edges}")
+    check(abs(got - exp) <= 1e-9 * exp, f"second graph: forest weight "
+          f"{got!r} against scipy's {exp!r}")
+    fitted = not trace
+    log(f"second graph (gnm weights shuffled by default_rng(1)): "
+        f"plan.pad(0.5) {'fitted' if fitted else 'replanned'} in "
+        f"{secs:.3f} s; forest weight {got!r} equals scipy's {exp!r} "
+        f"(float64 sums), {edges} edges")
+    return fitted
+
+
+def never_silent(dev, ru, rv, rw, rn):
+    """Plans that do not fit, on RMAT: cut to 2 rounds (residual) and
+    with every ``cap_edge = 1`` (overflow) must raise under
+    ``replan=False`` and give the driven solve's mask under
+    ``replan=True``."""
+    import torch
+    from repro_torch.core import distributed_sharded as ds
+    from repro_torch.core.distributed import build_dist_graph
+
+    rg, _ = build_dist_graph(ru, rv, rw, rn, NUM_SHARDS, device=dev)
+    driven = ds.distributed_sharded_msf(rg, rn, NUM_SHARDS,
+                                        pallas_minedges=True)
+    plan = ds.plan_sharded_msf(rg, rn, NUM_SHARDS, pallas_minedges=True)
+    check(plan.num_rounds > 2, f"rmat: a plan of {plan.num_rounds} rounds "
+          "cannot be cut short to 2")
+    cases = (("short", plan._replace(rounds=plan.rounds[:2]), "residual"),
+             ("cap_edge=1", plan._replace(rounds=tuple(
+                 r._replace(cap_edge=1) for r in plan.rounds)), "overflow"))
+    for name, bad, word in cases:
+        try:
+            ds.execute_plan(rg, rn, NUM_SHARDS, bad, replan=False)
+        except RuntimeError as exc:
+            check(word in str(exc), f"rmat {name}: the error does not name "
+                  f"the {word}: {exc}")
+        else:
+            raise SmokeFailure(f"rmat {name}: the strict replay returned")
+        res = ds.execute_plan(rg, rn, NUM_SHARDS, bad, replan=True)
+        check(int(res[4]) == 0 and torch.equal(res[0], driven[0]),
+              f"rmat {name}: the replan differs from the driven solve")
+    log(f"never silent, rmat scale {RMAT_SCALE} ({plan.num_rounds}-round "
+        "plan): cut to 2 rounds raises naming the residual, cap_edge=1 "
+        "raises naming the overflow, and both replan to the driven mask")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: K1 timing at the engine's shape
 # ---------------------------------------------------------------------------
 
@@ -1054,6 +1233,8 @@ def main() -> int:
     captured = {}
     launches = {}
     cached = {}
+    driven = {}  # the cached path's engine solves, for phase 3d
+    layout = None  # its prebuilt layout, which phase 3d replays on
     for path, levers in PATHS.items():
         for algorithm in ("boruvka", "filter_boruvka"):
             torch.cuda.reset_peak_memory_stats()
@@ -1095,9 +1276,29 @@ def main() -> int:
                       f"{algorithm}: a round of the cached path did not "
                       "read the ghost tables through the flat push")
                 cached[algorithm] = (mask.cpu().numpy(), stats)
+                if layout is None:
+                    layout = g
+                check(all(torch.equal(a, b) for a, b in zip(g, layout)),
+                      f"{algorithm}: the layout differs from the first "
+                      "one built of the same graph")
+                driven[algorithm] = dict(mask=res[0], engine_s=engine_s,
+                                         host_s=ehost.seconds)
             elif levers is LEVERS:
                 check_cache_gain(algorithm, mask, stats, *cached[algorithm])
             del g, res, mask
+        if levers is CACHED:
+            # phase 3d: plan the main path on phase 3's layout, replay it
+            replays = {}
+            for algorithm in ("boruvka", "filter_boruvka"):
+                plan, replays[algorithm] = plan_and_replay(
+                    dev, layout, n, algorithm, driven[algorithm],
+                    ref_weight, ref_count)
+                if algorithm == "boruvka":
+                    replay_second_graph(dev, u, v, w, n, layout, plan)
+            ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
+                                             * RMAT_DEGREE // 2, seed=SEED)
+            never_silent(dev, ru, rv, rw, rn)
+            del layout, driven, plan
 
     # phase 3c: the grid rung of the ghost push
     torch.cuda.reset_peak_memory_stats()
@@ -1121,8 +1322,6 @@ def main() -> int:
     del mask
 
     # phase 4: RMAT through every path, and the static engine
-    ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
-                                     * RMAT_DEGREE // 2, seed=SEED)
     edges = from_numpy(ru, rv, rw, rn, device=dev)
     rmat_kmask, _ = oracle.kruskal(ru, rv, rw, rn)
     for path, levers in PATHS.items():
@@ -1271,7 +1470,12 @@ def main() -> int:
                         ms=k1_sites["owner"]["ms"],
                         plain_ms=k1_sites["owner"]["plain_ms"],
                         bound_ms=k1_sites["owner"]["bound_ms"],
-                        library_ms=k1_sites["owner"]["library_ms"])),
+                        library_ms=k1_sites["owner"]["library_ms"]),
+                    planned_replay={a: dict(combine=r["combine"],
+                                            owner=r["owner"],
+                                            rounds=r["rounds"],
+                                            sentinels=r["sentinels"])
+                                    for a, r in replays.items()}),
                dict(name="relabel", route="cuda", source=K2_SOURCE,
                     replaces=K2_REPLACES,
                     launches=big["launches"]["relabel"],

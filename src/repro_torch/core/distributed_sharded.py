@@ -50,14 +50,22 @@ the measured dead mask and label table, snapped to the ladder of
 ``core/distributed.py: shrink_schedule``; otherwise the fused engine
 runs every round at the flat capacities (``edge_capacity`` =
 edges/shard, ``label_capacity`` = vps).  Every exchange reports
-overflow; results are exact iff it is 0.  ``plan`` and the checkpoint
-arguments raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
-— a lever never quietly runs something else.
+overflow; results are exact iff it is 0.
+
+A ``RoundPlan`` (``core/plan.py``) freezes the driver's schedule:
+``plan_sharded_msf`` measures it with one driven pass, and
+``execute_plan`` (or ``distributed_sharded_msf(plan=...)``) replays it
+through ``_planned_shard_fn``, every planned round at its capacities with
+no host bound between rounds; a plan that does not fit replans or
+raises.  Batched replay, verification and the checkpoint arguments raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item — a lever never
+quietly runs something else.
 """
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,6 +79,7 @@ from repro_torch.core.distributed import (ESENT, CommStats, DistGraph,
                                           _doubling_iters, _weight_pivots,
                                           quantize_capacity)
 from repro_torch.core.graph import reference_order_sum
+from repro_torch.core.plan import GhostPlan, RoundPlan, RoundSpec
 from repro_torch.kernels.segmin.ops import run_metadata, scatter_min_tables
 
 _ESENT = int(ESENT)
@@ -277,7 +286,10 @@ def _ghost_fill(table, vids, runs: Runs, valid, G: int, vps: int,
                                        count_misses=True, site="fill")
     ghost = torch.full((p, G + 1), -1, dtype=torch.int32,
                        device=valid.device)
-    ghost.scatter_(1, torch.where(ok, run_id, G).long(), out)
+    # runs past a table of G entries are dropped, as the reference's
+    # mode="drop" scatter does (a plan's tables can be too small for a
+    # replay graph; the executor's guard reports it)
+    ghost.scatter_(1, torch.where(ok & (run_id < G), run_id, G).long(), out)
     return ghost[:, :G].contiguous(), ovf, st
 
 
@@ -1466,7 +1478,8 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                             ghost_cache: bool, relabel_skip: bool,
                             vsorted: bool, push_capacity: Optional[int],
                             round_trace: Optional[List[dict]],
-                            pallas_minedges: bool, grid_push: bool):
+                            pallas_minedges: bool, grid_push: bool,
+                            plan_out: Optional[dict] = None):
     """Host-driven rounds with per-round shrinking capacities.
 
     Runs the same ``_round_body`` as the fused engine one round at a
@@ -1486,7 +1499,14 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     exact coalesced lookups (``ghost`` False in the trace).
 
     ``round_trace`` gets one dict per round, field for field the
-    reference's.  Returns the engine's 6-tuple on the graph's device;
+    reference's.  With ``plan_out`` (a dict) the driver is the
+    measurement pass of ``plan_sharded_msf``: it records the ghost setup
+    sizes (``"ghost"``), the level windows (``"level_bounds"``) and one
+    ``RoundSpec`` per round at the capacities it chose (``"rounds"``).
+    A level that ends on a zero MINEDGES bound records its skipped round
+    as a sentinel, which the executor runs at floor capacities so that
+    its ``go`` flag proves on the device what the zero bound proved here.
+    Returns the engine's 6-tuple on the graph's device;
     the weight is the float64 host sum of the masked slots, rounded to
     float32, as the reference's driver does.
     """
@@ -1522,10 +1542,14 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
         roots = _root_table(_host_ghost_table(hg, live_h), lab_h)
         Gu, Gv = hg.ghost_table_sizes()
         bu, bv = _ghost_fill_bounds(hg, live_h)
+        gp = GhostPlan(Gu, Gv, quantize_capacity(bu, lk_full),
+                       quantize_capacity(bv, lk_full),
+                       quantize_capacity(_subscribe_capacity_bound(
+                           roots, p, vps), vps))
+        if plan_out is not None:
+            plan_out["ghost"] = gp
         gs, vidx, runs_u, ovf, st = _ghost_setup(
-            u, v, valid, valid & ~dead, lab, hg.vperm, n, vps, Gu, Gv,
-            quantize_capacity(bu, lk_full), quantize_capacity(bv, lk_full),
-            quantize_capacity(_subscribe_capacity_bound(roots, p, vps), vps),
+            u, v, valid, valid & ~dead, lab, hg.vperm, n, vps, *gp,
             axis_sizes, schedule, ExchangeStats.zeros(dev), grid_push)
         overflow += int(ovf)
         acc += _stat_values(st)
@@ -1545,6 +1569,10 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
         windows = list(zip([-np.inf] + piv, piv + [np.inf]))
     else:
         raise ValueError(algorithm)
+    if plan_out is not None:
+        plan_out["level_bounds"] = [(float(lo), float(hi))
+                                    for lo, hi in windows]
+        plan_out["rounds"] = []
 
     rounds = 0
     for lvl, (lo, hi) in enumerate(windows):
@@ -1568,6 +1596,14 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                                     vsorted, cfg, roots)
             if not caps.ghost:
                 roots = None  # the cache is dropped for good
+            if plan_out is not None:
+                plan_out["rounds"].append(RoundSpec(
+                    level=lvl, cap_edge=caps.cap_edge,
+                    cap_lookup=caps.cap_lookup,
+                    cap_contract=caps.cap_contract,
+                    cap_relabel=caps.cap_relabel, cap_push=caps.cap_push,
+                    ghost=caps.ghost, sentinel=caps.bound_e == 0,
+                    cap_push_col=caps.cap_push_col))
             if caps.bound_e == 0:
                 break  # no candidate exists: go would come back False
             lab, mst, dead, gs, settled, go, ovf, st = _sharded_round_step(
@@ -1629,6 +1665,161 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     return (mask_t, put(weight, torch.float32),
             put(int(mask.sum()), torch.int32), lab.reshape(-1),
             put(overflow, torch.int32), comm)
+
+
+# --------------------------------------------------------------------------
+# planned replay: the shrinking schedule as a value
+# --------------------------------------------------------------------------
+
+def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
+                      axis_sizes: Sequence[int], plan: RoundPlan):
+    """The plan executor over stacked ``[p, cap]`` shards.
+
+    The fused engine's setup and ``_round_body``, with each round's
+    capacities read off the plan: every planned round runs, sentinels
+    included, one after another on the device.  Nothing between two
+    rounds reads a device value on the host (the preprocessing loop and
+    the adaptive doubling inside a round still read their flags, as the
+    driver's rounds do).
+
+    Never silent, beyond the overflow of every exchange:
+
+      * **ghost tables**: a replay graph with more distinct endpoint
+        runs on a shard than the planned tables hold would drop fills
+        and read clipped entries, so the excess over the planned sizes
+        (the most of any shard) is added to ``overflow``;
+      * **residual rounds**: each level's last planned round computes
+        ``go`` again, and a level still choosing edges after it adds 1
+        to ``residual``.
+
+    Returns (mask [p, cap], weight, count, lab [p, vps], overflow,
+    residual, CommStats), the residual as a device int32.
+    """
+    p = u.shape[0]
+    dev = u.device
+    valid = torch.isfinite(w)
+    lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
+                                             device=dev)
+    mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    stats = ExchangeStats.zeros(dev)
+    if plan.local_preprocessing:
+        lab, pre_mst, dead, ovf, stats = _sharded_preprocess(
+            u, v, w, eid, valid, n, vps, plan.cap_prep, axis_sizes,
+            plan.schedule, stats)
+        overflow = overflow + ovf
+    else:
+        pre_mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+        dead = u == v
+
+    gs = None
+    if plan.ghost is not None:
+        gp = plan.ghost
+        gs, vidx, runs_u, ovf, stats = _ghost_setup(
+            u, v, valid, valid & ~dead, lab, None, n, vps, *gp, axis_sizes,
+            plan.schedule, stats, plan.grid_push)
+        runs_v = None
+        # the structural guard: runs past the planned tables were dropped
+        nu = runs_u[0].sum(1, dtype=torch.int32).max()
+        nv = vidx.runs[0].sum(1, dtype=torch.int32).max()
+        overflow = (overflow + ovf + (nu - gp.table_u).clamp(min=0)
+                    + (nv - gp.table_v).clamp(min=0))
+    else:
+        runs_u, runs_v, vidx = _static_runs(u, v, valid, n, plan.coalesce,
+                                            plan.src_only,
+                                            plan.vsorted_index)
+
+    residual = torch.zeros((), dtype=torch.int32, device=dev)
+    for lvl, (lo, hi) in enumerate(plan.level_bounds):
+        live0 = valid
+        if len(plan.level_bounds) > 1:
+            live0 = valid & (w > torch.tensor(lo, dtype=torch.float32,
+                                              device=dev)) \
+                & (w <= torch.tensor(hi, dtype=torch.float32, device=dev))
+        settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
+        go = None
+        for spec in plan.rounds:
+            if spec.level != lvl:
+                continue
+            # the driver's lever rules, frozen per round: a round of a
+            # cached plan without the cache is its fallback, which looks
+            # up coalesced through the v-sorted index
+            fallback = plan.ghost is not None and not spec.ghost
+            coalesce_eff = plan.coalesce or fallback
+            vidx_r = vidx if (spec.ghost or (coalesce_eff
+                                             and vidx is not None)) else None
+            lab, mst, dead, g_out, settled, go, o, stats = _round_body(
+                u, v, w, eid, live0, lab, mst, dead, runs_u, runs_v, vidx_r,
+                gs if spec.ghost else None, settled, n, vps, axis_sizes,
+                spec.cap_edge, spec.cap_relabel, spec.cap_lookup,
+                spec.cap_contract, spec.cap_push, spec.cap_push_col,
+                plan.schedule, coalesce_eff, plan.src_only,
+                plan.adaptive_doubling, plan.relabel_skip,
+                plan.pallas_minedges, plan.grid_push and spec.ghost, stats)
+            if spec.ghost:
+                gs = g_out
+            overflow = overflow + o
+        if go is not None:
+            # a level still choosing edges after its planned rounds has
+            # work the plan did not provision
+            residual = residual + go.to(torch.int32)
+
+    full_mask = mst | pre_mst
+    weight = psum_f32(reference_order_sum(torch.where(full_mask, w, 0.0)))
+    count = full_mask.sum(dtype=torch.int32)
+    comm = CommStats(stats.calls, stats.items, stats.bytes,
+                     torch.tensor(plan.num_rounds, dtype=torch.int32,
+                                  device=dev),
+                     stats.hits, stats.misses, stats.pushed, stats.injected)
+    return full_mask, weight, count, lab, overflow, residual, comm
+
+
+def _validate_plan_shape(plan: RoundPlan, n: int, p: int, cap: int) -> None:
+    plan.validate()
+    if (plan.n, plan.num_shards, plan.cap_per_shard) != (n, p, cap):
+        raise ValueError(
+            f"plan was measured for n={plan.n}, p={plan.num_shards}, "
+            f"cap/shard={plan.cap_per_shard} but this solve has n={n}, "
+            f"p={p}, cap/shard={cap}; plans only transfer across "
+            "graphs built at the same shape")
+
+
+def _run_plan(graph: DistGraph, n: int, axis_sizes: Sequence[int],
+              plan: RoundPlan):
+    """The executor on a flat ``DistGraph``.  Returns (mask [p * cap],
+    weight, count, labels [p * vps], overflow, residual, CommStats), all
+    on the graph's device."""
+    p = math.prod(axis_sizes)
+    cap = graph.cap_total // p
+    _validate_plan_shape(plan, n, p, cap)
+    if plan.grid_push and len(axis_sizes) != 2:
+        raise ValueError(
+            "plan was measured with the two-level grid push and needs an "
+            f"(R, C) layout, got {tuple(axis_sizes)}")
+    mask, weight, count, lab, ovf, residual, comm = _planned_shard_fn(
+        *(x.view(p, cap) for x in graph), n, vertices_per_shard(n, p),
+        axis_sizes, plan)
+    return (mask.reshape(-1), weight, count, lab.reshape(-1), ovf, residual,
+            comm)
+
+
+def _replan_with_plan(graph: DistGraph, n: int, num_shards,
+                      plan: RoundPlan,
+                      round_trace: Optional[List[dict]] = None):
+    """One fresh measured pass with the plan's frozen levers: the
+    fallback of a replay that does not fit."""
+    return distributed_sharded_msf(
+        graph, n, num_shards, algorithm=plan.algorithm,
+        num_levels=len(plan.level_bounds), schedule=plan.schedule,
+        local_preprocessing=plan.local_preprocessing,
+        coalesce=plan.coalesce, src_only=plan.src_only,
+        adaptive_doubling=plan.adaptive_doubling,
+        shrink_capacities=True, ghost_cache=plan.ghost is not None,
+        ghost_push=(("grid" if plan.grid_push else "flat")
+                    if plan.ghost is not None else None),
+        relabel_skip=plan.relabel_skip,
+        vsorted_index=plan.vsorted_index,
+        pallas_minedges=plan.pallas_minedges, round_trace=round_trace)
 
 
 # --------------------------------------------------------------------------
@@ -1696,6 +1887,30 @@ def _ghost_push_mode(ghost_cache: bool, mode: Optional[str],
     return False, False
 
 
+def _full_capacities(graph: DistGraph, hg: Optional[_HostGraph], n: int,
+                     p: int, edge_capacity: Optional[int],
+                     label_capacity: Optional[int],
+                     lookup_capacity: Optional[int], coalesce: bool,
+                     ghost_cache: bool, vsorted_index: bool
+                     ) -> Tuple[int, int, int]:
+    """The flat capacities (edge, label, lookup): a user's value where
+    given, else edges/shard, vps, and the exact coalesced-run bound
+    (through the v-sorted index when it or the cache is on) under
+    ``coalesce`` or the cache, or the edge capacity."""
+    # is-None (not falsy) checks: an explicit 0 must be honored — it
+    # yields all-overflow results, which the overflow count reports
+    ce = int(graph.cap_total // p if edge_capacity is None else edge_capacity)
+    cl = int(vertices_per_shard(n, p) if label_capacity is None
+             else label_capacity)
+    if lookup_capacity is not None:
+        lk = int(lookup_capacity)
+    elif coalesce or ghost_cache:
+        lk = int(_lookup_bound(hg, None, vsorted_index or ghost_cache))
+    else:
+        lk = ce
+    return ce, cl, lk
+
+
 def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
                             algorithm: str = "boruvka",
                             num_levels: int = 4,
@@ -1716,7 +1931,7 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
                             ghost_push: Optional[str] = None,
                             push_capacity: Optional[int] = None,
                             round_trace: Optional[List[dict]] = None,
-                            plan=None,
+                            plan: Optional[RoundPlan] = None,
                             replan: bool = True,
                             ghost_shard_limit: Optional[int] = None,
                             ckpt_every: Optional[int] = None,
@@ -1760,33 +1975,51 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
     take it); ``ghost_shard_limit`` caps the mask width of both rungs
     (31).  ``push_capacity`` pins the push exchange: the shrinking
     driver then drops the cache in a round whose push bound it cannot
-    hold, the fused engine reports the overflow.  ``plan`` (ROADMAP.md
-    queue 1 item 9) and the checkpoint arguments (item 10) raise
-    ``NotImplementedError``.
+    hold, the fused engine reports the overflow.
+
+    ``plan`` replays a measured ``RoundPlan`` (``plan_sharded_msf``)
+    instead: its rounds run one after another at the planned capacities,
+    with no host bound between them, and its frozen levers override this
+    call's.  A plan that does not fit the graph (overflow, or a level
+    still choosing edges after its last planned round) is never silent:
+    the call replans, one fresh measured pass whose ``round_trace`` it
+    fills, or with ``replan=False`` raises ``RuntimeError``.  The
+    checkpoint arguments raise ``NotImplementedError`` (ROADMAP.md
+    queue 1 item 10), and ``ValueError`` beside a plan.
     """
-    if plan is not None:
-        raise _unported("plan replay", "item 9 (plans and planned replay)")
-    if (ckpt_every is not None or ckpt_out is not None
-            or resume_from is not None):
-        raise _unported("checkpointing", "item 10 (checkpoints)")
+    wants_ckpt = (ckpt_every is not None or ckpt_out is not None
+                  or resume_from is not None)
     axis_sizes = shard_layout(num_shards)
+    if plan is not None:
+        if wants_ckpt:
+            raise ValueError(
+                "checkpointing a plan replay goes through execute_plan("
+                "ckpt_every=..., resume_from=...), which segments the "
+                "planned rounds at cadence boundaries")
+        mask, weight, count, lab, ovf, residual, comm = _run_plan(
+            graph, n, axis_sizes, plan)
+        o, r = torch.stack([ovf, residual]).tolist()
+        if o == 0 and r == 0:
+            return mask, weight, count, lab, ovf, comm
+        if not replan:
+            raise RuntimeError(
+                f"plan replay does not fit this graph (overflow={o}, "
+                f"residual levels={r}); pad the plan, re-measure with "
+                "plan_sharded_msf, or allow replan=True")
+        return _replan_with_plan(graph, n, num_shards, plan,
+                                 round_trace=round_trace)
+    if wants_ckpt:
+        raise _unported("checkpointing", "item 10 (checkpoints)")
     p = math.prod(axis_sizes)
     ghost_cache, grid_push = _ghost_push_mode(ghost_cache, ghost_push,
                                               axis_sizes, ghost_shard_limit)
     vps = vertices_per_shard(n, p)
     cap = graph.cap_total // p
-    # is-None (not falsy) checks: an explicit 0 must be honored — it
-    # yields all-overflow results, which the overflow count reports
-    ce = int(cap if edge_capacity is None else edge_capacity)
-    cl = int(vps if label_capacity is None else label_capacity)
     hg = _HostGraph(graph, p, n) \
         if (coalesce or shrink_capacities or ghost_cache) else None
-    if lookup_capacity is not None:
-        lk = int(lookup_capacity)
-    elif coalesce or ghost_cache:
-        lk = _lookup_bound(hg, None, vsorted_index or ghost_cache)
-    else:
-        lk = ce
+    ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
+                                  label_capacity, lookup_capacity, coalesce,
+                                  ghost_cache, vsorted_index)
     if shrink_capacities:
         return _shrinking_capacity_msf(
             graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce,
@@ -1809,3 +2042,150 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
         vsorted_index, pallas_minedges, grid_push)
     return (mask.reshape(-1), weight, count, lab.reshape(-1), overflow,
             comm)
+
+
+def plan_sharded_msf(graph: DistGraph, n: int, num_shards, *,
+                     algorithm: str = "boruvka", num_levels: int = 4,
+                     max_rounds: Optional[int] = None,
+                     edge_capacity: Optional[int] = None,
+                     label_capacity: Optional[int] = None,
+                     lookup_capacity: Optional[int] = None,
+                     schedule: str = "grid",
+                     local_preprocessing: bool = True,
+                     coalesce: bool = True, src_only: bool = True,
+                     adaptive_doubling: bool = True,
+                     ghost_cache: bool = True, relabel_skip: bool = True,
+                     vsorted_index: bool = True,
+                     pallas_minedges: bool = False,
+                     ghost_push: Optional[str] = None,
+                     ghost_shard_limit: Optional[int] = None,
+                     push_capacity: Optional[int] = None,
+                     round_trace: Optional[List[dict]] = None
+                     ) -> RoundPlan:
+    """Measure a ``RoundPlan`` for ``graph``: one pass of the shrinking
+    driver, whose schedule is frozen — each round's capacities (ladder
+    rungs, so the plan transfers to similar graphs), the preprocessing
+    and ghost-setup capacities, the filter levels' windows, and a
+    sentinel round for each level that ended on a zero bound.
+
+    Replay it with ``execute_plan`` or ``distributed_sharded_msf(...,
+    plan=plan)``; ``plan.pad`` adds headroom, ``plan.to_json`` makes it
+    durable.  Raises ``RuntimeError`` if the measurement pass overflowed
+    (undersized explicit capacities): such a plan would be unreliable.
+    ``round_trace`` passes through to the driver.
+    """
+    axis_sizes = shard_layout(num_shards)
+    p = math.prod(axis_sizes)
+    ghost_cache, grid_push = _ghost_push_mode(ghost_cache, ghost_push,
+                                              axis_sizes, ghost_shard_limit)
+    hg = _HostGraph(graph, p, n)
+    ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
+                                  label_capacity, lookup_capacity, coalesce,
+                                  ghost_cache, vsorted_index)
+    rec: dict = {}
+    res = _shrinking_capacity_msf(
+        graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce, cl,
+        lk, schedule, local_preprocessing, coalesce, src_only,
+        adaptive_doubling, ghost_cache, relabel_skip, vsorted_index,
+        push_capacity, round_trace, pallas_minedges, grid_push, plan_out=rec)
+    ovf = int(res[4])
+    if ovf:
+        raise RuntimeError(
+            f"measurement pass overflowed ({ovf} items): a plan recorded "
+            "off a lossy pass would be unreliable — retry with larger "
+            "explicit capacities (or the exact defaults)")
+    ghost = rec.get("ghost")
+    return RoundPlan(
+        n=n, num_shards=p, cap_per_shard=graph.cap_total // p,
+        algorithm=algorithm, schedule=schedule,
+        local_preprocessing=local_preprocessing, coalesce=coalesce,
+        src_only=src_only, adaptive_doubling=adaptive_doubling,
+        relabel_skip=relabel_skip, vsorted_index=vsorted_index,
+        cap_prep=cl, edge_capacity_full=ce, label_capacity_full=cl,
+        lookup_capacity_full=lk, ghost=ghost,
+        level_bounds=tuple(rec["level_bounds"]), rounds=tuple(rec["rounds"]),
+        pallas_minedges=pallas_minedges,
+        grid_push=grid_push and ghost is not None).validate()
+
+
+def execute_plan(graph: DistGraph, n: int, num_shards, plan: RoundPlan, *,
+                 replan: bool = True,
+                 round_trace: Optional[List[dict]] = None,
+                 verify: bool = False, ckpt_every: Optional[int] = None,
+                 ckpt_out: Optional[List] = None, resume_from=None):
+    """Replay a measured ``RoundPlan`` on a graph of the same shape.
+
+    ``distributed_sharded_msf(graph, n, num_shards, plan=plan)``: the
+    planned rounds run at their capacities, and a plan that does not fit
+    replans (``replan=True``) or raises (``replan=False``, the strict
+    mode).  ``round_trace`` is filled only by a replan: a fitting replay
+    has no host step between rounds to tabulate.  ``verify`` and the
+    checkpoint arguments raise ``NotImplementedError`` (ROADMAP.md
+    queue 1 item 10).
+    """
+    if verify:
+        raise _unported("verify_forest", "item 10 (batched replay, verify, "
+                        "checkpoints)")
+    if (ckpt_every is not None or ckpt_out is not None
+            or resume_from is not None):
+        raise _unported("checkpointed plan replay", "item 10 (batched "
+                        "replay, verify, checkpoints)")
+    return distributed_sharded_msf(graph, n, num_shards, plan=plan,
+                                   replan=replan, round_trace=round_trace)
+
+
+def make_sharded_mst_step(n: int, cap_total: int, num_shards,
+                          algorithm: str = "boruvka",
+                          plan: Optional[RoundPlan] = None, **kw):
+    """A sharded MSF step of fixed shape that never replans: the port's
+    counterpart of the reference's AOT-lowered step, which has no host
+    to replan on.  Returns (step, specs): ``step(u, v, w, eid)`` on
+    ``[cap_total]`` tensors gives the engine's 6-tuple, and ``specs``
+    are its inputs' ``(shape, dtype)`` pairs.
+
+    With ``plan`` the step replays it; the residual count is folded into
+    the returned ``overflow`` (exact iff 0) and a plan of another shape
+    raises ``ValueError``.  Without one the step runs the fused
+    flat-capacity engine: ``shrink_capacities=True`` raises (measure a
+    plan instead), an omitted ``shrink_capacities`` warns, and ``False``
+    is silent.
+    """
+    axis_sizes = shard_layout(num_shards)
+    p = math.prod(axis_sizes)
+    if plan is not None:
+        if (cap_total != plan.cap_per_shard * p or n != plan.n
+                or p != plan.num_shards):
+            raise ValueError(
+                f"plan shape (n={plan.n}, p={plan.num_shards}, "
+                f"cap/shard={plan.cap_per_shard}) does not match the step "
+                f"shape (n={n}, p={p}, cap/shard={cap_total // max(p, 1)})")
+
+        def step(u, v, w, eid):
+            mask, weight, count, lab, ovf, residual, comm = _run_plan(
+                DistGraph(u, v, w, eid), n, axis_sizes, plan)
+            return mask, weight, count, lab, ovf + residual, comm
+    else:
+        if kw.get("shrink_capacities"):
+            raise ValueError(
+                "shrink_capacities=True cannot drive the host-orchestrated "
+                "schedule in a fixed step; measure a RoundPlan once "
+                "(plan_sharded_msf) and pass plan=..., or request the "
+                "flat-capacity engine explicitly with "
+                "shrink_capacities=False")
+        if "shrink_capacities" not in kw:
+            warnings.warn(
+                "make_sharded_mst_step without a plan runs the fused "
+                "flat-capacity engine (worst-case buffers every round); "
+                "pass plan=plan_sharded_msf(...) to step the shrinking "
+                "schedule, or shrink_capacities=False to silence this",
+                stacklevel=2)
+            kw = dict(kw, shrink_capacities=False)
+
+        def step(u, v, w, eid):
+            return distributed_sharded_msf(DistGraph(u, v, w, eid), n,
+                                           num_shards, algorithm=algorithm,
+                                           **kw)
+
+    specs = (((cap_total,), torch.int32), ((cap_total,), torch.int32),
+             ((cap_total,), torch.float32), ((cap_total,), torch.int32))
+    return step, specs

@@ -13,7 +13,9 @@ on ``engine``:
     reference takes a mesh here): an int ``p``, or an ``(R, C)`` pair
     for the reference's two-axis mesh.  With no engine knobs it runs
     the reference's defaults, the ghost-vertex label cache included;
-    knobs pass through ``**kw``.
+    knobs pass through ``**kw``, ``plan=`` (a ``RoundPlan`` measured by
+    ``plan_sharded_msf`` on the layout this dispatch builds) and
+    ``replan=`` included, so a plan replays from here too.
 
 ``engine="distributed"`` (the replicated mesh engine) is not ported yet
 and raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
@@ -42,9 +44,12 @@ def _sharded_dispatch(edges: EdgeList, num_shards, algorithm: str,
 
     Host-side: drop padding, double + sort + 1D-partition the edges (the
     engine's input format), run, then reduce the slot mask back to the
-    caller's edge positions via the undirected edge ids.  Repeated
-    solves of one graph should build a ``DistGraph`` once and call
-    ``distributed_sharded_msf`` directly.
+    caller's edge positions via the undirected edge ids.  ``kw`` reaches
+    ``distributed_sharded_msf`` whole, a ``plan`` with it: the layout
+    built here is ``build_dist_graph`` of the finite edges, the shape a
+    plan must have been measured at.  Repeated solves of one graph
+    should build a ``DistGraph`` once and call ``distributed_sharded_msf``
+    (or ``execute_plan``) directly.
     """
     dev = edges.u.device
     u = edges.u.cpu().numpy()

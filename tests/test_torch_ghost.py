@@ -90,13 +90,13 @@ STATS = ("calls", "items", "bytes", "rounds", "hits", "misses", "pushed",
 
 def make_graph(name):
     """(u, v, w, n) of a named test graph: a ``FAMILIES`` entry
-    (``family:seed``), the reference tests' rgg2d graphs (``rgg2d:n``),
-    or ``settle``, the strided path beside pairs of GHOST_CACHE (2b)."""
+    (``family:seed``), the reference tests' rgg2d and gnm graphs
+    (``rgg2d:n``, ``gnm:n``), or ``settle``, the strided path beside
+    pairs of GHOST_CACHE (2b)."""
     from repro.data import generators
     fam, _, arg = name.partition(":")
-    if fam == "rgg2d":
-        return generators.generate("rgg2d", int(arg), avg_degree=8.0,
-                                   seed=7)
+    if fam in ("rgg2d", "gnm"):
+        return generators.generate(fam, int(arg), avg_degree=8.0, seed=7)
     if fam == "settle":
         ns = 212
         path_ids = np.arange(10, dtype=np.int32) * 21
@@ -154,22 +154,25 @@ print("OK")
 """
 
 
-def _run_group(path, group):
+def _run_group(path, group, script=REFERENCE):
     ndev = max(math.prod(run[1]) for run in group)
     body = (f"OUT = {str(path)!r}\nRUNS = {group!r}\nROWS = {ROWS!r}\n"
             f"STATS = {STATS!r}\n" + inspect.getsource(make_graph)
-            + inspect.getsource(run_key) + REFERENCE)
+            + inspect.getsource(run_key) + script)
     assert "OK" in run_multidevice(body, ndev=ndev, timeout=900)
     with np.load(path) as data:
         return dict(data)
 
 
-def reference(tmp, groups):
+def reference(tmp, groups, script=REFERENCE):
     """The reference's runs of ``groups``, one subprocess a group, all at
-    once (their compile time dominates), as one dict."""
+    once (their compile time dominates), as one dict.  ``script`` is the
+    body each subprocess runs over its ``RUNS`` (this module's
+    ``REFERENCE`` by default); it writes its arrays to ``OUT``."""
     with ThreadPoolExecutor(len(groups)) as pool:
         parts = pool.map(_run_group, [tmp / f"group{i}.npz"
-                                      for i in range(len(groups))], groups)
+                                      for i in range(len(groups))], groups,
+                         [script] * len(groups))
         out = {}
         for part in parts:
             out.update(part)

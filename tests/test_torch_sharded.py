@@ -24,9 +24,11 @@ from repro.core.distributed import build_dist_graph as jax_build_dist_graph
 from repro_torch.comm.exchange import (ExchangeStats, reply, request_reply,
                                        routed_exchange)
 from repro_torch.core.distributed import DistGraph, build_dist_graph
-from repro_torch.core.distributed_sharded import distributed_sharded_msf
+from repro_torch.core.distributed_sharded import (distributed_sharded_msf,
+                                                  execute_plan)
 from repro_torch.core.graph import from_numpy
 from repro_torch.core.mst import minimum_spanning_forest
+from repro_torch.core.plan import synthetic_plan
 from tests.helpers import graph_families
 from tests.helpers.graph_families import FAMILIES
 from tests.helpers.subproc import run_multidevice
@@ -252,8 +254,9 @@ def test_build_dist_graph_layout_matches_reference(family):
 def test_unported_levers_raise():
     """The port's boundary: every lever runs, the ghost cache included
     (also on the reference's defaults); a ghost push the layout cannot
-    take raises, never downgraded; plan replay, the checkpoint arguments
-    and the replicated engine raise naming their ROADMAP item."""
+    take raises, never downgraded; a plan replays, but one of another
+    shape raises; verified replay, the checkpoint arguments and the
+    replicated engine raise naming their ROADMAP item."""
     u, v, w, n = FAMILIES["random"](0)
     g, _ = build_dist_graph(u, v, w, n, P, device=CPU)
     res = distributed_sharded_msf(g, n, P)  # the reference's defaults
@@ -273,8 +276,11 @@ def test_unported_levers_raise():
         distributed_sharded_msf(g, n, (8, 4), ghost_push="flat")
     with pytest.raises(ValueError, match="unknown ghost_push"):
         distributed_sharded_msf(g, n, P, ghost_push="ring")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        distributed_sharded_msf(g, n, P, plan=object())
+    with pytest.raises(ValueError, match="plans only transfer"):
+        distributed_sharded_msf(g, n, P, plan=synthetic_plan(
+            n + 1, g.cap_total, P))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        execute_plan(g, n, P, synthetic_plan(n, g.cap_total, P), verify=True)
     for ckpt in (dict(ckpt_every=2), dict(ckpt_out=[]),
                  dict(resume_from=object())):
         with pytest.raises(NotImplementedError, match="item 10"):
