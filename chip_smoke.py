@@ -45,6 +45,23 @@ Phases, each fatal on failure (exit 1):
      RMAT a plan cut to 2 rounds and one with ``cap_edge=1`` must raise
      under ``replan=False`` and give the driven mask under
      ``replan=True``;
+  3e. (run right after phase 3d, on its layout, boruvka plan and second
+     graph) the robustness paths, each a hard check with K1 counted
+     apart: ``execute_plan(verify=True)`` equal to the strict replay and
+     timed against it (the verifier's overhead); ``ckpt_every=3`` with
+     every checkpoint's CRCs checked and every resume equal to the plain
+     replay (checkpoint count, bytes, certify + snapshot time); the
+     driven engine killed by an ``abort`` fault in round 3 with
+     ``ckpt_every=2``, resumed from its last checkpoint to phase 3's
+     driven mask with at most 2 rounds run again; ``execute_plan_batched``
+     of both graphs under ``plan.pad(0.5)`` with ``verify=True``, each
+     request equal to its own strict replay, timed against two single
+     replays; a ``corrupt`` fault at ``minedges`` (fraction 0.25, bit 26)
+     detected or tolerated, then a fault-free replay equal to the
+     baseline; and the chaos harness (``repro_torch.launch.chaos``) at
+     n = 512 on the card — the planned and batched matrix on gnm and
+     rgg2d, the grid-push cells, the recovery cells — with no ``SILENT``
+     cell;
   3b. the earlier paths, each checked the same way: the lever path
      (``ghost_cache=False``, every other lever on), whose edge set the
      cached path must equal while serving hits, pushing, and shipping
@@ -842,7 +859,7 @@ def replay_second_graph(dev, u, v, w, n, g, plan):
     out again, and ``plan.pad(0.5)`` replayed on it with replans allowed:
     its forest's float64 weight must equal scipy's MST weight (the MSF
     weight is unique even where the MSF is not) with n - #components
-    edges.  Returns whether the plan fitted."""
+    edges.  Returns (whether the plan fitted, the second layout)."""
     import numpy as np
     import torch
     from repro_torch.core import distributed_sharded as ds
@@ -874,7 +891,7 @@ def replay_second_graph(dev, u, v, w, n, g, plan):
         f"plan.pad(0.5) {'fitted' if fitted else 'replanned'} in "
         f"{secs:.3f} s; forest weight {got!r} equals scipy's {exp!r} "
         f"(float64 sums), {edges} edges")
-    return fitted
+    return fitted, g2
 
 
 def never_silent(dev, ru, rv, rw, rn):
@@ -909,6 +926,245 @@ def never_silent(dev, ru, rv, rw, rn):
     log(f"never silent, rmat scale {RMAT_SCALE} ({plan.num_rounds}-round "
         "plan): cut to 2 rounds raises naming the residual, cap_edge=1 "
         "raises naming the overflow, and both replan to the driven mask")
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: verified, checkpointed, recovered, batched and faulted replays
+# ---------------------------------------------------------------------------
+
+def wall(fn):
+    """(result, seconds) of ``fn()`` on the host clock, synced."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(what, fn):
+    """``fn()`` with every launch count set to 0 just before it; K1 must
+    launch in it.  Returns (result, seconds, K1 launches)."""
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    reset_counts()
+    out, secs = wall(fn)
+    k1 = owner_scatter_min.launches
+    check(k1 > 0, f"{what}: the path launched K1 no time")
+    return out, secs, k1
+
+
+def same_result(a, b, what):
+    """Two engine 6-tuples equal on every output and CommStats field."""
+    import torch
+    names = ("mask", "weight", "count", "labels", "overflow")
+    for name, x, y in zip(names, a[:5], b[:5]):
+        check(torch.equal(x, y), f"{what}: {name} differs")
+    for field, x, y in zip(a[5]._fields, a[5], b[5]):
+        check(torch.equal(x, y), f"{what}: CommStats.{field} differs")
+
+
+def same_forest(a, b, what):
+    """Equal mask, weight and count."""
+    import torch
+    check(torch.equal(a[0], b[0]) and float(a[1]) == float(b[1])
+          and int(a[2]) == int(b[2]), f"{what}: the forest differs")
+
+
+class Certify:
+    """While active, the host clock of each certify + snapshot barrier
+    (``_certified_checkpoint``)."""
+
+    def __enter__(self):
+        from repro_torch.core import distributed_sharded as ds
+        self._ds, self._fn, self.seconds = ds, ds._certified_checkpoint, []
+
+        def timed(*args, **kw):
+            out, secs = wall(lambda: self._fn(*args, **kw))
+            self.seconds.append(secs)
+            return out
+
+        ds._certified_checkpoint = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ds._certified_checkpoint = self._fn
+        return False
+
+
+def robustness(dev, g, n, plan, driven_mask, g2, fitted):
+    """Phase 3e on phase 3's layout ``g`` with phase 3d's boruvka
+    ``plan``; ``g2`` is phase 3d's second graph, which ``plan.pad(0.5)``
+    ``fitted``.  Each step is a hard check, with K1 counted per step.
+    Returns a dict of figures."""
+    import torch
+    from repro_torch.comm import faults
+    from repro_torch.core import distributed_sharded as ds
+    from repro_torch.core.verify import verify_forest
+    from repro_torch.launch import chaos
+
+    def replay(**kw):
+        return ds.execute_plan(g, n, NUM_SHARDS, plan, replan=False, **kw)
+
+    fig, k1 = {}, {}
+    # 1. the verified replay against the plain one, both warmed up
+    base = replay()
+    replay(verify=True)
+    base, fig["replay_s"], _ = counted("strict replay", replay)
+    ver, fig["verified_s"], k1["verified_replay"] = counted(
+        "verified replay", lambda: replay(verify=True))
+    same_result(ver, base, "verified replay")
+    check(torch.equal(base[0], driven_mask), "strict replay: the mask "
+          "differs from phase 3d's")
+    def check_forest():
+        return verify_forest(g, n, NUM_SHARDS, base[0], base[3],
+                             expected_weight=float(base[1]),
+                             expected_count=int(base[2]), device=dev)
+
+    report = check_forest()
+    check(report.ok, f"verify: {report.reasons}")
+    # the verifier alone, the mean of 5 calls: the overhead itself, which
+    # one replay's run-to-run spread hides
+    _, secs = wall(lambda: [check_forest() for _ in range(5)])
+    fig["verify_alone_s"] = secs / 5
+    log(f"3e verified replay gnm boruvka: {report}; verify=True "
+        f"{fig['verified_s']:.3f} s against the strict replay "
+        f"{fig['replay_s']:.3f} s (difference "
+        f"{(fig['verified_s'] - fig['replay_s']) * 1e3:.1f} ms); "
+        f"verify_forest alone {fig['verify_alone_s'] * 1e3:.2f} ms (mean "
+        f"of 5); K1 launches {k1['verified_replay']}")
+
+    # 2. the checkpointed replay and a resume from each checkpoint
+    cks = []
+    with Certify() as cert:
+        seg, fig["ckpt_replay_s"], k1["checkpointed_replay"] = counted(
+            "checkpointed replay",
+            lambda: replay(ckpt_every=3, ckpt_out=cks))
+    same_forest(seg, base, "checkpointed replay")
+    check(torch.equal(seg[3], base[3]), "checkpointed replay: labels differ")
+    check(len(cks) >= 1, "checkpointed replay: no certified checkpoint")
+    resumes = []
+    for ck in cks:
+        ck.verify_checksums()
+        res, secs, launched = counted(
+            f"resume at plan_pos {ck.plan_pos}",
+            lambda ck=ck: replay(resume_from=ck))
+        same_forest(res, base, f"resume at plan_pos {ck.plan_pos}")
+        k1[f"resume_plan_pos_{ck.plan_pos}"] = launched
+        resumes.append(f"plan_pos {ck.plan_pos}: {secs:.3f} s")
+    fig["ckpt_bytes"] = sum(getattr(cks[0], f).nbytes for f in (
+        "lab", "settled", "mask", "dead", "eids", "stats_acc", "checksums"))
+    fig["certify_s"] = cert.seconds
+    certify = ", ".join(f"{x:.3f}" for x in cert.seconds)
+    log(f"3e checkpointed replay (ckpt_every=3): {len(cks)} certified "
+        f"checkpoints at plan_pos {[c.plan_pos for c in cks]}; "
+        f"{fig['ckpt_replay_s']:.3f} s against {fig['replay_s']:.3f} s "
+        f"plain; certify + snapshot {certify} s; one checkpoint "
+        f"{fig['ckpt_bytes']} B; every resume equals the plain replay "
+        f"({'; '.join(resumes)}); K1 launches "
+        f"{k1['checkpointed_replay']}")
+
+    # 3. the driven engine killed in round 3, resumed
+    cks = []
+    abort = faults.FaultPlan(seed=0, specs=(faults.FaultSpec(
+        kind="abort", site="minedges", rounds=(3,)),))
+
+    def killed():
+        try:
+            with faults.inject(abort):
+                ds.distributed_sharded_msf(g, n, NUM_SHARDS,
+                                           pallas_minedges=True,
+                                           ckpt_every=2, ckpt_out=cks)
+        except faults.ShardAbort as exc:  # the death this step injects
+            # not the exception: its traceback would hold the dead
+            # round's tensors in a cycle through this frame
+            return exc.site, exc.round
+        raise SmokeFailure("driven recovery: the abort never fired")
+
+    (site, died), fig["killed_s"], k1["driven_until_abort"] = counted(
+        "driven run until the abort", killed)
+    check(died == 3 and cks, f"driven recovery: died in round {died} with "
+          f"{len(cks)} checkpoints")
+    ck = cks[-1]
+    res, fig["resumed_s"], k1["driven_resume"] = counted(
+        "driven resume", lambda: ds.distributed_sharded_msf(
+            g, n, NUM_SHARDS, pallas_minedges=True, resume_from=ck))
+    check(torch.equal(res[0], driven_mask) and int(res[4]) == 0,
+          "driven resume: the mask differs from phase 3's driven solve")
+    again = died - 1 - ck.round_index
+    check(0 <= again <= 2, f"driven recovery: {again} rounds run again")
+    log(f"3e driven recovery: ShardAbort at {site!r} in round "
+        f"{died} after {fig['killed_s']:.3f} s; resumed from {ck!r} in "
+        f"{fig['resumed_s']:.3f} s, {again} rounds run again; mask equals "
+        f"phase 3's driven solve; K1 launches {k1['driven_until_abort']} + "
+        f"{k1['driven_resume']}")
+
+    # 4. two graphs through execute_plan_batched, verified, strict
+    check(fitted, "batched replay: phase 3d's padded plan did not fit the "
+          "second graph, so a strict batch cannot hold it")
+    padded = plan.pad(0.5)
+    singles = [ds.execute_plan(x, n, NUM_SHARDS, padded, replan=False)
+               for x in (g, g2)]
+    _, fig["two_singles_s"] = wall(lambda: [
+        ds.execute_plan(x, n, NUM_SHARDS, padded, replan=False)
+        for x in (g, g2)])
+    (results, flagged), fig["batched_s"], k1["batched"] = counted(
+        "batched replay", lambda: ds.execute_plan_batched(
+            [g, g2], n, NUM_SHARDS, padded, replan=False, verify=True,
+            device=dev))
+    check(flagged == (), f"batched replay: flagged {flagged}")
+    for i, (res, one) in enumerate(zip(results, singles)):
+        same_result(res, one, f"batched request {i}")
+    log(f"3e batched replay of 2 graphs (plan.pad(0.5), verify=True): "
+        f"{fig['batched_s']:.3f} s against two single strict replays "
+        f"{fig['two_singles_s']:.3f} s; each request equals its own "
+        f"replay, flagged (); K1 launches {k1['batched']}")
+
+    # 5. one fault cell at full width, K1 in the loop
+    spec = faults.FaultSpec(kind="corrupt", site="minedges", fraction=0.25,
+                            bit=26)
+    with faults.inject(faults.FaultPlan(seed=0, specs=(spec,))):
+        raw, _, k1["faulted_replay"] = counted(
+            "faulted replay", lambda: ds._run_plan(g, n, (NUM_SHARDS,),
+                                                   plan))
+    injected = float(raw[6].injected)
+    verdict, why, _ = chaos._classify(
+        g, n, NUM_SHARDS, plan, spec, 0, base[0].cpu().numpy(),
+        float(base[1]), int(base[2]))
+    check(injected > 0, "faulted replay: nothing injected")
+    check(verdict in ("detected", "tolerated"),
+          f"faulted replay: {verdict} ({why})")
+    after = replay()
+    same_result(after, base, "fault-free replay after the fault cell")
+    log(f"3e fault cell corrupt@minedges (fraction 0.25, bit 26): "
+        f"{injected:.0f} items injected, overflow {int(raw[4])}, residual "
+        f"{int(raw[5])}; {verdict} ({why[:160]}); the fault-free replay "
+        f"after it equals the baseline; K1 launches "
+        f"{k1['faulted_replay']}")
+
+    # 6. the chaos harness on the card at n = 512
+    def harness():
+        cells = chaos.run_matrix(("gnm", "rgg2d"), 512, 0, batched=True,
+                                 verbose=False, device=dev)
+        cells += chaos.run_grid_push_cells(512, 0, verbose=False,
+                                           device=dev)
+        return cells, chaos.run_recovery_cells(("gnm",), 512, 0,
+                                               verbose=False, device=dev)
+
+    (cells, rec), fig["chaos_s"], k1["chaos_n512"] = counted(
+        "chaos harness", harness)
+    counts = {v: sum(c["verdict"] == v for c in cells)
+              for v in ("detected", "tolerated", "SILENT")}
+    check(counts["SILENT"] == 0, "chaos: silent cells " + json.dumps(
+        [c for c in cells if c["verdict"] == "SILENT"]))
+    log(f"3e chaos harness n=512 on the card: {len(cells)} cells "
+        f"{json.dumps(counts)}, {len(rec)} recovery cells recovered, "
+        f"{fig['chaos_s']:.3f} s; K1 launches {k1['chaos_n512']}")
+    for c in cells:
+        log(f"  {c['fault']:<12} {c['family']:<6} {c['path']:<24} -> "
+            f"{c['verdict']}  ({c['why'][:100]})")
+    fig["verdicts"] = counts
+    fig["k1"] = k1
+    return fig
 
 
 # ---------------------------------------------------------------------------
@@ -1294,11 +1550,19 @@ def main() -> int:
                     dev, layout, n, algorithm, driven[algorithm],
                     ref_weight, ref_count)
                 if algorithm == "boruvka":
-                    replay_second_graph(dev, u, v, w, n, layout, plan)
+                    b_plan = plan
+                    fitted, second = replay_second_graph(
+                        dev, u, v, w, n, layout, plan)
+            # phase 3e: verify, checkpoints, recovery, batched replay,
+            # faults, on phase 3d's layout and plan
+            t0 = time.perf_counter()
+            robust = robustness(dev, layout, n, b_plan,
+                                driven["boruvka"]["mask"], second, fitted)
+            log(f"phase 3e: {time.perf_counter() - t0:.1f} s wall")
             ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
                                              * RMAT_DEGREE // 2, seed=SEED)
             never_silent(dev, ru, rv, rw, rn)
-            del layout, driven, plan
+            del layout, driven, plan, b_plan, second
 
     # phase 3c: the grid rung of the ghost push
     torch.cuda.reset_peak_memory_stats()
@@ -1475,7 +1739,8 @@ def main() -> int:
                                             owner=r["owner"],
                                             rounds=r["rounds"],
                                             sentinels=r["sentinels"])
-                                    for a, r in replays.items()}),
+                                    for a, r in replays.items()},
+                    robustness_paths=robust["k1"]),
                dict(name="relabel", route="cuda", source=K2_SOURCE,
                     replaces=K2_REPLACES,
                     launches=big["launches"]["relabel"],

@@ -27,8 +27,10 @@ The multicast primitives deliver one item to every shard of a bitmask:
 layout with one mask per grid axis (at most 31 x 31 shards).  Only the
 ghost-vertex label cache uses them.
 
-``site`` labels a call for fault injection, which the port does not have
-yet; the argument is kept so call sites stay those of the reference.
+``site`` labels a call for fault injection (``comm/faults.py``): while a
+``FaultPlan`` is active, the specs matching the label are applied to the
+call's items and the affected count rides ``stats.injected``.  With no
+active plan the hooks add no work and change no output.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.comm import faults
 from repro_torch.comm.grid_alltoall import all_to_all_axis, all_to_all_nd
 
 
@@ -94,8 +97,7 @@ def psum_f32(per_shard: torch.Tensor) -> torch.Tensor:
 
 def _psum_count(mask: torch.Tensor) -> torch.Tensor:
     """float32 count of set entries, per shard then over shards."""
-    per = mask.reshape(mask.shape[0], -1).sum(1).to(torch.float32)
-    return psum_f32(per)
+    return psum_f32(faults.count(mask))
 
 
 class ExchangeResult(NamedTuple):
@@ -146,8 +148,18 @@ def routed_exchange(payload, dest: torch.Tensor, valid: torch.Tensor,
     p = math.prod(sizes)
     dev = dest.device
     L = dest.shape[1]
+    cap_ok = capacity
+    fspecs = faults.specs_for(site)
+    if fspecs:
+        seed = faults.active().seed
+        payload, dest, valid, cap_ok, inj = faults.apply_send(
+            fspecs, seed, site, payload, dest, valid, capacity, p)
     pos = _group_positions(dest, valid, p)
-    ok = valid & (pos < capacity) & (dest >= 0) & (dest < p)
+    ok = valid & (pos < cap_ok) & (dest >= 0) & (dest < p)
+    if fspecs and cap_ok < capacity:
+        # clip: the rows a genuine capacity would have admitted are
+        # forced overflow, charged to the injected counter too
+        inj = inj + faults.count(valid & (pos >= cap_ok) & (pos < capacity))
     # predicated scatter: an item that is not ok lands in a trash row of
     # its own past the buffer, so no two writes share a row
     buf_rows = p * p * capacity
@@ -168,6 +180,9 @@ def routed_exchange(payload, dest: torch.Tensor, valid: torch.Tensor,
     send_mask = scatter(ok)
     recv = tuple(all_to_all_nd(b, sizes, schedule) for b in send)
     recv_ok = all_to_all_nd(send_mask, sizes, schedule)
+    if fspecs:
+        recv_ok, inj_r = faults.apply_recv(fspecs, seed, site, recv_ok)
+        inj = inj + inj_r
     overflow = (valid & ~ok).sum(dtype=torch.int32)
     if stats is not None:
         h = _hops(sizes, schedule)
@@ -177,6 +192,8 @@ def routed_exchange(payload, dest: torch.Tensor, valid: torch.Tensor,
                                items=stats.items + _psum_count(ok),
                                bytes=stats.bytes + by * h,
                                slots=stats.slots + p * capacity)
+        if fspecs:
+            stats = stats._replace(injected=stats.injected + psum_f32(inj))
     if not isinstance(payload, (tuple, list)):
         recv = recv[0]
     return ExchangeResult(recv, recv_ok, ok, dest, pos, overflow, stats)
@@ -254,17 +271,19 @@ class ScatterResult(NamedTuple):
     stats: Optional[ExchangeStats] = None
 
 
-def _copy_buffers(leaves, want: torch.Tensor, capacity: int):
+def _copy_buffers(leaves, want: torch.Tensor, capacity: int,
+                  admit: Optional[int] = None):
     """Send buffers of a multicast: copy (s, i, d) of ``want`` ([p, L,
     D]) takes position ``pos`` = its rank among shard s's copies to d (a
     cumsum down the items) in row d of shard s's ``[D, capacity]``
-    buffer, if ``pos < capacity``.  Returns (buffers of ``leaves``
-    ([p, L, ...] each) as ``[p, D, capacity, ...]``, the validity
-    buffer, ok [p, L, D])."""
+    buffer, if ``pos < admit`` (``capacity`` unless a ``clip`` fault
+    lowers it).  Returns (buffers of ``leaves`` ([p, L, ...] each) as
+    ``[p, D, capacity, ...]``, the validity buffer, ok [p, L, D], pos
+    [p, L, D])."""
     p, L, D = want.shape
     dev = want.device
     pos = torch.cumsum(want.to(torch.int32), dim=1) - 1
-    ok = want & (pos < capacity)
+    ok = want & (pos < (capacity if admit is None else admit))
     rows = p * D * capacity
     shard = torch.arange(p, dtype=torch.int64, device=dev).view(p, 1, 1)
     dst = torch.arange(D, dtype=torch.int64, device=dev).view(1, 1, D)
@@ -285,7 +304,14 @@ def _copy_buffers(leaves, want: torch.Tensor, capacity: int):
     send = tuple(scatter(x.unsqueeze(2).expand((p, L, D)
                                                + tuple(x.shape[2:])))
                  for x in leaves)
-    return send, scatter(ok), ok
+    return send, scatter(ok), ok, pos
+
+
+def _clipped(want: torch.Tensor, pos: torch.Tensor, admit: int,
+             capacity: int) -> torch.Tensor:
+    """``[p]`` copies a ``clip`` fault turned away that ``capacity``
+    would have admitted."""
+    return faults.count(want & (pos >= admit) & (pos < capacity))
 
 
 def scatter_updates(payload, dest_mask: torch.Tensor, valid: torch.Tensor,
@@ -304,11 +330,22 @@ def scatter_updates(payload, dest_mask: torch.Tensor, valid: torch.Tensor,
     caller's to count."""
     sizes = tuple(axis_sizes)
     p = math.prod(sizes)
+    cap_ok = capacity
+    fspecs = faults.specs_for(site)
+    if fspecs:
+        seed = faults.active().seed
+        payload, dest_mask, valid, cap_ok, inj = faults.apply_send_scatter(
+            fspecs, seed, site, payload, dest_mask, valid, capacity, p)
     leaves = _leaves(payload)
     want = _mask_to_copies(dest_mask, valid, p)
-    send, send_mask, ok = _copy_buffers(leaves, want, capacity)
+    send, send_mask, ok, pos = _copy_buffers(leaves, want, capacity, cap_ok)
+    if fspecs and cap_ok < capacity:
+        inj = inj + _clipped(want, pos, cap_ok, capacity)
     recv = tuple(all_to_all_nd(b, sizes, schedule) for b in send)
     recv_ok = all_to_all_nd(send_mask, sizes, schedule)
+    if fspecs:
+        recv_ok, inj_r = faults.apply_recv(fspecs, seed, site, recv_ok)
+        inj = inj + inj_r
     overflow = (want & ~ok).sum(dtype=torch.int32)
     if stats is not None:
         h = _hops(sizes, schedule)
@@ -317,6 +354,8 @@ def scatter_updates(payload, dest_mask: torch.Tensor, valid: torch.Tensor,
                                items=stats.items + _psum_count(ok),
                                bytes=stats.bytes + by * h,
                                slots=stats.slots + p * capacity * h)
+        if fspecs:
+            stats = stats._replace(injected=stats.injected + psum_f32(inj))
     if not isinstance(payload, (tuple, list)):
         recv = recv[0]
     return ScatterResult(recv, recv_ok, ok, overflow, stats)
@@ -349,22 +388,54 @@ def scatter_updates_grid(payload, row_mask: torch.Tensor,
                          f"got {sizes!r}")
     R, C = sizes
     p = R * C
-    leaves = _leaves(payload)
+    n_leaves = len(_leaves(payload))
+    inj = 0.0  # a [p] tensor once a fault spec applies
 
-    # hop 1: owner -> deputies along the row (exchange over col)
+    # hop 1: owner -> deputies along the row (exchange over col); the
+    # send-side faults hit the [p, L] items, before the copies expand
+    pl1 = _leaves(payload) + (row_mask,)
+    cap1_ok = cap_row
+    fspecs1 = faults.specs_for(site_row)
+    if fspecs1:
+        seed = faults.active().seed
+        pl1, col_mask, valid, cap1_ok, inj = faults.apply_send_scatter(
+            fspecs1, seed, site_row, pl1, col_mask, valid, cap_row, C)
     want1 = _mask_to_copies(col_mask, valid, C)
-    send1, mask1, ok1 = _copy_buffers(leaves + (row_mask,), want1, cap_row)
+    send1, mask1, ok1, pos1 = _copy_buffers(pl1, want1, cap_row, cap1_ok)
+    if fspecs1 and cap1_ok < cap_row:
+        inj = inj + _clipped(want1, pos1, cap1_ok, cap_row)
     hop1 = tuple(all_to_all_axis(b, sizes, 1) for b in send1)
     ok_r = all_to_all_axis(mask1, sizes, 1)
+    if fspecs1:
+        ok_r, inj_r = faults.apply_recv(fspecs1, seed, site_row, ok_r)
+        inj = inj + inj_r
     ovf1 = (want1 & ~ok1).sum(dtype=torch.int32)
 
     # hop 2: deputy -> subscribers down the column (exchange over row)
     M = C * cap_row
     dep = tuple(x.reshape((p, M) + tuple(x.shape[3:])) for x in hop1)
-    want2 = _mask_to_copies(dep[-1], ok_r.reshape(p, M), R)
-    send2, mask2, ok2 = _copy_buffers(dep[:-1], want2, cap_col)
+    dep_payload, dep_rmask = dep[:-1], dep[-1]
+    dep_valid = ok_r.reshape(p, M)
+    cap2_ok = cap_col
+    fspecs2 = faults.specs_for(site_col)
+    if fspecs2:
+        seed = faults.active().seed
+        (dep_payload, dep_rmask, dep_valid, cap2_ok,
+         inj2) = faults.apply_send_scatter(fspecs2, seed, site_col,
+                                           dep_payload, dep_rmask,
+                                           dep_valid, cap_col, R)
+        inj = inj + inj2
+    want2 = _mask_to_copies(dep_rmask, dep_valid, R)
+    send2, mask2, ok2, pos2 = _copy_buffers(dep_payload, want2, cap_col,
+                                            cap2_ok)
+    if fspecs2 and cap2_ok < cap_col:
+        inj = inj + _clipped(want2, pos2, cap2_ok, cap_col)
     recv = tuple(all_to_all_axis(b, sizes, 0) for b in send2)
     recv_ok = all_to_all_axis(mask2, sizes, 0)
+    if fspecs2:
+        recv_ok, inj_r2 = faults.apply_recv(fspecs2, seed, site_col,
+                                            recv_ok)
+        inj = inj + inj_r2
     ovf2 = (want2 & ~ok2).sum(dtype=torch.int32)
 
     if stats is not None:
@@ -373,10 +444,12 @@ def scatter_updates_grid(payload, row_mask: torch.Tensor,
         per = (ok1.reshape(p, -1).sum(1).to(torch.float32)
                + ok2.reshape(p, -1).sum(1).to(torch.float32))
         stats = stats._replace(
-            calls=stats.calls + (len(leaves) + 2) + (len(leaves) + 1),
+            calls=stats.calls + (n_leaves + 2) + (n_leaves + 1),
             items=stats.items + psum_f32(per),
             bytes=stats.bytes + by,
             slots=stats.slots + (C * cap_row + R * cap_col))
+        if fspecs1 or fspecs2:
+            stats = stats._replace(injected=stats.injected + psum_f32(inj))
     if not isinstance(payload, (tuple, list)):
         recv = recv[0]
     return ScatterResult(recv, recv_ok, ok1, ovf1 + ovf2, stats)

@@ -57,9 +57,10 @@ A ``RoundPlan`` (``core/plan.py``) freezes the driver's schedule:
 ``execute_plan`` (or ``distributed_sharded_msf(plan=...)``) replays it
 through ``_planned_shard_fn``, every planned round at its capacities with
 no host bound between rounds; a plan that does not fit replans or
-raises.  Batched replay, verification and the checkpoint arguments raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item — a lever never
-quietly runs something else.
+raises.  ``execute_plan_batched`` replays one plan on B graphs with
+per-request overflow, ``verify=True`` checks a returned forest
+(``core/verify.py``), and both the driver and the replay take and resume
+from certified round checkpoints (``core/msf_checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import faults
 from repro_torch.comm.exchange import (ExchangeStats, _hops,
                                        _mask_to_copies, psum_f32, reply,
                                        routed_exchange, scatter_updates,
@@ -79,7 +81,9 @@ from repro_torch.core.distributed import (ESENT, CommStats, DistGraph,
                                           _doubling_iters, _weight_pivots,
                                           quantize_capacity)
 from repro_torch.core.graph import reference_order_sum
+from repro_torch.core.msf_checkpoint import CheckpointError, MSFCheckpoint
 from repro_torch.core.plan import GhostPlan, RoundPlan, RoundSpec
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.segmin.ops import run_metadata, scatter_min_tables
 
 _ESENT = int(ESENT)
@@ -1447,6 +1451,48 @@ def _stat_values(st: ExchangeStats) -> np.ndarray:
     return torch.stack([x.double() for x in st]).cpu().numpy()
 
 
+def _comm_from_acc(acc: np.ndarray, rounds: int,
+                   device: torch.device) -> CommStats:
+    """``CommStats`` of a float64 host accumulator of the 8 counters
+    (its slot 3 unused), each rounded to the field's type."""
+    def put(x, dtype):
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    return CommStats(put(np.int32(acc[0]), torch.int32),
+                     *(put(np.float32(x), torch.float32) for x in acc[1:3]),
+                     put(rounds, torch.int32),
+                     *(put(np.float32(x), torch.float32) for x in acc[4:]))
+
+
+def _certified_checkpoint(graph: DistGraph, n: int,
+                          axis_sizes: Sequence[int], cap: int,
+                          algorithm: str, windows, rounds: int,
+                          lvl_next: int, r_next: int,
+                          plan_pos: Optional[int], lab: torch.Tensor,
+                          mask_h: np.ndarray, dead_h: np.ndarray,
+                          settled_h: np.ndarray, ghost_on: bool,
+                          acc: np.ndarray) -> Optional[MSFCheckpoint]:
+    """The invariant barrier, then the snapshot: ``core/verify.py``'s
+    structural checks run on the partial forest (labels are fixpoints at
+    every round boundary and each chosen edge merged two components, so
+    it satisfies the final forest's invariants), and the checkpoint is
+    made only on a pass.  A failing barrier returns None: no checkpoint
+    beats an uncertified one."""
+    from repro_torch.core.verify import verify_forest
+    dev = graph.u.device
+    rep = verify_forest(graph, n, axis_sizes, torch.from_numpy(mask_h), lab,
+                        raise_on_fail=False, device=dev)
+    if not rep.ok:
+        return None
+    return MSFCheckpoint.create(
+        n=n, num_shards=math.prod(axis_sizes), cap_per_shard=cap,
+        algorithm=algorithm, round_index=rounds, level=lvl_next,
+        round_in_level=r_next, plan_pos=plan_pos, level_bounds=windows,
+        lab=lab.cpu().numpy().reshape(-1), settled=settled_h, mask=mask_h,
+        dead=dead_h, eid=graph.eid.cpu().numpy(), ghost_on=ghost_on,
+        stats_acc=acc)
+
+
 def _sharded_round_step(u, v, w, eid, static: _Static, lab, mst, dead,
                         ghost: Optional[GhostState], settled, lo: float,
                         hi: float, n: int, vps: int,
@@ -1479,7 +1525,10 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                             vsorted: bool, push_capacity: Optional[int],
                             round_trace: Optional[List[dict]],
                             pallas_minedges: bool, grid_push: bool,
-                            plan_out: Optional[dict] = None):
+                            plan_out: Optional[dict] = None,
+                            ckpt_every: Optional[int] = None,
+                            ckpt_out: Optional[List] = None,
+                            resume_from: Optional[MSFCheckpoint] = None):
     """Host-driven rounds with per-round shrinking capacities.
 
     Runs the same ``_round_body`` as the fused engine one round at a
@@ -1506,6 +1555,16 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     A level that ends on a zero MINEDGES bound records its skipped round
     as a sentinel, which the executor runs at floor capacities so that
     its ``go`` flag proves on the device what the zero bound proved here.
+
+    With ``ckpt_every=k`` and ``ckpt_out`` (a list), every k executed
+    rounds the partial forest passes the verifier's barrier and a
+    certified ``MSFCheckpoint`` is appended: mid-level, or at the head of
+    the next level when this one ended.  ``resume_from`` re-enters at a
+    checkpoint's (level, round) with its labels, masks, settled mask,
+    counters and level windows; the ghost tables, the root table and the
+    host bounds are rebuilt from the restored labels and dead mask
+    through the setup path.  The driver publishes each round's 1-based
+    number through ``faults.set_round`` just before it runs.
     Returns the engine's 6-tuple on the graph's device;
     the weight is the float64 host sum of the masked slots, rounded to
     float32, as the reference's driver does.
@@ -1519,9 +1578,29 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     u, v, w, eid = (x.view(p, cap) for x in graph)
     valid = torch.isfinite(w)
 
+    if plan_out is not None and (resume_from is not None or ckpt_every):
+        raise ValueError(
+            "checkpointing is not supported during plan measurement; "
+            "checkpoint the planned execution via execute_plan instead")
+
     overflow = 0
     acc = np.zeros(8, np.float64)
-    if local_preprocessing:
+    mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
+    if resume_from is not None:
+        # re-entry: the certified snapshot replaces the preprocessing
+        # product; the ghost tables are rebuilt below from (lab, dead)
+        ck = resume_from.validate_for(n, p, cap)
+        if ck.algorithm != algorithm:
+            raise CheckpointError(
+                f"checkpoint algorithm {ck.algorithm!r} does not match "
+                f"this solve's {algorithm!r}")
+        lab = torch.tensor(ck.lab, device=dev).view(p, vps)
+        pre_mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
+        mst = torch.tensor(ck.mask, device=dev).view(p, cap)
+        dead = torch.tensor(ck.dead, device=dev).view(p, cap)
+        acc += ck.stats_acc
+        ghost_cache = ghost_cache and ck.ghost_on
+    elif local_preprocessing:
         lab, pre_mst, dead, ovf, st = _sharded_preprocess(
             u, v, w, eid, valid, n, vps, cl, axis_sizes, schedule,
             ExchangeStats.zeros(dev))
@@ -1532,7 +1611,6 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                                                  device=dev)
         pre_mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
         dead = u == v
-    mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
     dead_h = dead.cpu().numpy().reshape(-1)
 
     gs = roots = cfg = None
@@ -1569,18 +1647,34 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
         windows = list(zip([-np.inf] + piv, piv + [np.inf]))
     else:
         raise ValueError(algorithm)
+    if resume_from is not None:
+        # the snapshot freezes the level windows: pivots recomputed on
+        # another layout (an elastic restore) could move them
+        windows = [(float(lo), float(hi))
+                   for lo, hi in resume_from.level_bounds]
     if plan_out is not None:
         plan_out["level_bounds"] = [(float(lo), float(hi))
                                     for lo, hi in windows]
         plan_out["rounds"] = []
 
-    rounds = 0
+    rounds = start_lvl = start_r = 0
+    if resume_from is not None:
+        rounds = resume_from.round_index
+        start_lvl = resume_from.level
+        start_r = resume_from.round_in_level
     for lvl, (lo, hi) in enumerate(windows):
+        if lvl < start_lvl:
+            continue
         active_h = hg.valid & (hg.w > lo) & (hg.w <= hi)
         # settled is per level: a new weight window revives edges
-        settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
-        settled_h = np.zeros(p * vps, bool)
-        r = 0
+        if lvl == start_lvl and resume_from is not None:
+            settled_h = resume_from.settled.copy()
+            settled = torch.tensor(settled_h, device=dev).view(p, vps)
+            r = start_r
+        else:
+            settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
+            settled_h = np.zeros(p * vps, bool)
+            r = 0
         while r < mr:
             if overflow:
                 # an undersized user capacity already dropped items: the
@@ -1606,6 +1700,7 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                     cap_push_col=caps.cap_push_col))
             if caps.bound_e == 0:
                 break  # no candidate exists: go would come back False
+            faults.set_round(rounds + 1)  # for round-selected aborts
             lab, mst, dead, gs, settled, go, ovf, st = _sharded_round_step(
                 u, v, w, eid, static, lab, mst, dead, gs, settled, lo, hi,
                 n, vps, axis_sizes, caps, schedule, src_only, adaptive,
@@ -1644,7 +1739,21 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                     "pushed_items": float(stv[6]),
                     "injected_items": float(stv[7]),
                 })
-            if not bool(go):
+            go = bool(go)
+            if (ckpt_out is not None and ckpt_every
+                    and rounds % ckpt_every == 0 and not overflow):
+                # re-enter mid-level if the level goes on, else at the
+                # head of the next level with a fresh settled mask
+                nxt_lvl, nxt_r = (lvl, r) if go else (lvl + 1, 0)
+                ck = _certified_checkpoint(
+                    graph, n, axis_sizes, cap, algorithm, windows, rounds,
+                    nxt_lvl, nxt_r, None, lab,
+                    (mst | pre_mst).cpu().numpy().reshape(-1), dead_h,
+                    settled_h if go else np.zeros(p * vps, bool),
+                    roots is not None, acc)
+                if ck is not None:
+                    ckpt_out.append(ck)
+            if not go:
                 break
 
     mask_t = (mst | pre_mst).reshape(-1)
@@ -1653,14 +1762,7 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
     def put(x, dtype):
         return torch.tensor(x, dtype=dtype, device=dev)
 
-    comm = CommStats(put(np.int32(acc[0]), torch.int32),
-                     put(np.float32(acc[1]), torch.float32),
-                     put(np.float32(acc[2]), torch.float32),
-                     put(rounds, torch.int32),
-                     put(np.float32(acc[4]), torch.float32),
-                     put(np.float32(acc[5]), torch.float32),
-                     put(np.float32(acc[6]), torch.float32),
-                     put(np.float32(acc[7]), torch.float32))
+    comm = _comm_from_acc(acc, rounds, dev)
     weight = np.float32(np.sum(hg.w[mask], dtype=np.float64))
     return (mask_t, put(weight, torch.float32),
             put(int(mask.sum()), torch.int32), lab.reshape(-1),
@@ -1672,15 +1774,26 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
 # --------------------------------------------------------------------------
 
 def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
-                      axis_sizes: Sequence[int], plan: RoundPlan):
-    """The plan executor over stacked ``[p, cap]`` shards.
+                      axis_sizes: Sequence[int], plan: RoundPlan,
+                      start: int = 0, stop: Optional[int] = None,
+                      carry=None):
+    """The plan executor over stacked ``[p, cap]`` shards: planned rounds
+    ``[start, stop)`` (default: all of them).
 
     The fused engine's setup and ``_round_body``, with each round's
-    capacities read off the plan: every planned round runs, sentinels
-    included, one after another on the device.  Nothing between two
-    rounds reads a device value on the host (the preprocessing loop and
-    the adaptive doubling inside a round still read their flags, as the
-    driver's rounds do).
+    capacities read off the plan: every planned round of the segment
+    runs, sentinels included, one after another on the device.  Nothing
+    between two rounds reads a device value on the host (the
+    preprocessing loop and the adaptive doubling inside a round still
+    read their flags, as the driver's rounds do).
+
+    ``start == 0`` runs the setup (preprocessing, ghost fill); a later
+    segment takes ``carry`` = (lab, mask, dead, settled) from the segment
+    before it or from a checkpoint — the mask already holds the
+    preprocessing picks — and rebuilds the ghost tables from it through
+    the same setup.  A segment whose first round opens a new level starts
+    it with a fresh settled mask.  The plain replay is the segment ``[0,
+    R)``; ``execute_plan`` cuts it at checkpoint boundaries.
 
     Never silent, beyond the overflow of every exchange:
 
@@ -1690,27 +1803,33 @@ def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
         (the most of any shard) is added to ``overflow``;
       * **residual rounds**: each level's last planned round computes
         ``go`` again, and a level still choosing edges after it adds 1
-        to ``residual``.
+        to ``residual`` — charged by the segment that runs that round.
 
     Returns (mask [p, cap], weight, count, lab [p, vps], overflow,
-    residual, CommStats), the residual as a device int32.
+    residual, CommStats, dead [p, cap], settled [p, vps]), the residual
+    as a device int32 and ``CommStats.rounds`` the segment's length.
     """
     p = u.shape[0]
     dev = u.device
+    R = len(plan.rounds)
+    stop = R if stop is None else stop
     valid = torch.isfinite(w)
-    lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
-                                             device=dev)
-    mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     stats = ExchangeStats.zeros(dev)
-    if plan.local_preprocessing:
-        lab, pre_mst, dead, ovf, stats = _sharded_preprocess(
-            u, v, w, eid, valid, n, vps, plan.cap_prep, axis_sizes,
-            plan.schedule, stats)
-        overflow = overflow + ovf
+    pre_mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+    if start > 0:
+        lab, mst, dead, settled0 = carry
     else:
-        pre_mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
-        dead = u == v
+        lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
+                                                 device=dev)
+        mst = torch.zeros(u.shape, dtype=torch.bool, device=dev)
+        if plan.local_preprocessing:
+            lab, pre_mst, dead, ovf, stats = _sharded_preprocess(
+                u, v, w, eid, valid, n, vps, plan.cap_prep, axis_sizes,
+                plan.schedule, stats)
+            overflow = overflow + ovf
+        else:
+            dead = u == v
 
     gs = None
     if plan.ghost is not None:
@@ -1730,17 +1849,27 @@ def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
                                             plan.vsorted_index)
 
     residual = torch.zeros((), dtype=torch.int32, device=dev)
+    start_level = plan.rounds[start].level if start < R else 0
+    fresh_level = start == 0 or (start < R and plan.rounds[start].level
+                                 != plan.rounds[start - 1].level)
+    settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
     for lvl, (lo, hi) in enumerate(plan.level_bounds):
+        idxs = [i for i, r in enumerate(plan.rounds) if r.level == lvl]
+        run = [i for i in idxs if start <= i < stop]
+        if lvl < start_level or not run:
+            continue
         live0 = valid
         if len(plan.level_bounds) > 1:
             live0 = valid & (w > torch.tensor(lo, dtype=torch.float32,
                                               device=dev)) \
                 & (w <= torch.tensor(hi, dtype=torch.float32, device=dev))
-        settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
+        if lvl == start_level and not fresh_level:
+            settled = settled0
+        else:
+            settled = torch.zeros((p, vps), dtype=torch.bool, device=dev)
         go = None
-        for spec in plan.rounds:
-            if spec.level != lvl:
-                continue
+        for i in run:
+            spec = plan.rounds[i]
             # the driver's lever rules, frozen per round: a round of a
             # cached plan without the cache is its fallback, which looks
             # up coalesced through the v-sorted index
@@ -1759,7 +1888,7 @@ def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
             if spec.ghost:
                 gs = g_out
             overflow = overflow + o
-        if go is not None:
+        if go is not None and idxs[-1] < stop:
             # a level still choosing edges after its planned rounds has
             # work the plan did not provision
             residual = residual + go.to(torch.int32)
@@ -1768,10 +1897,11 @@ def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
     weight = psum_f32(reference_order_sum(torch.where(full_mask, w, 0.0)))
     count = full_mask.sum(dtype=torch.int32)
     comm = CommStats(stats.calls, stats.items, stats.bytes,
-                     torch.tensor(plan.num_rounds, dtype=torch.int32,
+                     torch.tensor(stop - start, dtype=torch.int32,
                                   device=dev),
                      stats.hits, stats.misses, stats.pushed, stats.injected)
-    return full_mask, weight, count, lab, overflow, residual, comm
+    return (full_mask, weight, count, lab, overflow, residual, comm, dead,
+            settled)
 
 
 def _validate_plan_shape(plan: RoundPlan, n: int, p: int, cap: int) -> None:
@@ -1784,30 +1914,50 @@ def _validate_plan_shape(plan: RoundPlan, n: int, p: int, cap: int) -> None:
             "graphs built at the same shape")
 
 
-def _run_plan(graph: DistGraph, n: int, axis_sizes: Sequence[int],
-              plan: RoundPlan):
-    """The executor on a flat ``DistGraph``.  Returns (mask [p * cap],
-    weight, count, labels [p * vps], overflow, residual, CommStats), all
-    on the graph's device."""
-    p = math.prod(axis_sizes)
-    cap = graph.cap_total // p
-    _validate_plan_shape(plan, n, p, cap)
+def _check_plan(plan: RoundPlan, n: int, axis_sizes: Sequence[int],
+                cap: int) -> None:
+    _validate_plan_shape(plan, n, math.prod(axis_sizes), cap)
     if plan.grid_push and len(axis_sizes) != 2:
         raise ValueError(
             "plan was measured with the two-level grid push and needs an "
             f"(R, C) layout, got {tuple(axis_sizes)}")
-    mask, weight, count, lab, ovf, residual, comm = _planned_shard_fn(
-        *(x.view(p, cap) for x in graph), n, vertices_per_shard(n, p),
-        axis_sizes, plan)
+
+
+def _run_segment(graph: DistGraph, n: int, axis_sizes: Sequence[int],
+                 plan: RoundPlan, start: int = 0,
+                 stop: Optional[int] = None, carry=None):
+    """``_planned_shard_fn`` on a flat ``DistGraph`` (``carry`` flat too).
+    Returns its 9-tuple with the mask, labels, dead and settled masks
+    flat, all on the graph's device."""
+    p = math.prod(axis_sizes)
+    cap = graph.cap_total // p
+    vps = vertices_per_shard(n, p)
+    if carry is not None:
+        carry = tuple(x.view(p, -1) for x in carry)
+    out = _planned_shard_fn(*(x.view(p, cap) for x in graph), n, vps,
+                            axis_sizes, plan, start, stop, carry)
+    mask, weight, count, lab, ovf, residual, comm, dead, settled = out
     return (mask.reshape(-1), weight, count, lab.reshape(-1), ovf, residual,
-            comm)
+            comm, dead.reshape(-1), settled.reshape(-1))
+
+
+def _run_plan(graph: DistGraph, n: int, axis_sizes: Sequence[int],
+              plan: RoundPlan):
+    """The whole plan on a flat ``DistGraph``.  Returns (mask [p * cap],
+    weight, count, labels [p * vps], overflow, residual, CommStats), all
+    on the graph's device."""
+    _check_plan(plan, n, axis_sizes, graph.cap_total // math.prod(axis_sizes))
+    return _run_segment(graph, n, axis_sizes, plan)[:7]
 
 
 def _replan_with_plan(graph: DistGraph, n: int, num_shards,
                       plan: RoundPlan,
-                      round_trace: Optional[List[dict]] = None):
+                      round_trace: Optional[List[dict]] = None,
+                      ckpt_every: Optional[int] = None,
+                      ckpt_out: Optional[List] = None):
     """One fresh measured pass with the plan's frozen levers: the
-    fallback of a replay that does not fit."""
+    fallback of a replay that does not fit.  A checkpointed replay's
+    cadence passes through to the driver."""
     return distributed_sharded_msf(
         graph, n, num_shards, algorithm=plan.algorithm,
         num_levels=len(plan.level_bounds), schedule=plan.schedule,
@@ -1819,18 +1969,13 @@ def _replan_with_plan(graph: DistGraph, n: int, num_shards,
                     if plan.ghost is not None else None),
         relabel_skip=plan.relabel_skip,
         vsorted_index=plan.vsorted_index,
-        pallas_minedges=plan.pallas_minedges, round_trace=round_trace)
+        pallas_minedges=plan.pallas_minedges, round_trace=round_trace,
+        ckpt_every=ckpt_every, ckpt_out=ckpt_out)
 
 
 # --------------------------------------------------------------------------
 # entry point
 # --------------------------------------------------------------------------
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-        f"{item})")
-
 
 def shard_layout(num_shards) -> Tuple[int, ...]:
     """The shard layout's axis sizes: ``(p,)`` for an int, ``(R, C)``
@@ -1983,9 +2128,16 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
     call's.  A plan that does not fit the graph (overflow, or a level
     still choosing edges after its last planned round) is never silent:
     the call replans, one fresh measured pass whose ``round_trace`` it
-    fills, or with ``replan=False`` raises ``RuntimeError``.  The
-    checkpoint arguments raise ``NotImplementedError`` (ROADMAP.md
-    queue 1 item 10), and ``ValueError`` beside a plan.
+    fills, or with ``replan=False`` raises ``RuntimeError``.
+
+    Checkpoints (the shrinking driver only): ``ckpt_every=k`` with
+    ``ckpt_out`` (a list) appends a certified ``MSFCheckpoint`` every k
+    executed rounds; ``resume_from=ck`` re-enters at the checkpoint's
+    (level, round), and the resumed run's forest and labels equal the
+    uninterrupted run's.  A ``ck.remap(...)`` of a checkpoint restores it
+    onto another shard count (pass the graph laid out at that count).
+    Beside a plan or on the fused engine they raise ``ValueError``;
+    checkpointed replay is ``execute_plan``'s.
     """
     wants_ckpt = (ckpt_every is not None or ckpt_out is not None
                   or resume_from is not None)
@@ -2008,8 +2160,11 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
                 "plan_sharded_msf, or allow replan=True")
         return _replan_with_plan(graph, n, num_shards, plan,
                                  round_trace=round_trace)
-    if wants_ckpt:
-        raise _unported("checkpointing", "item 10 (checkpoints)")
+    if wants_ckpt and not shrink_capacities:
+        raise ValueError(
+            "checkpointing needs the host-driven shrinking-capacity path "
+            "(shrink_capacities=True): the fused engine has no round "
+            "boundary to snapshot at")
     p = math.prod(axis_sizes)
     ghost_cache, grid_push = _ghost_push_mode(ghost_cache, ghost_push,
                                               axis_sizes, ghost_shard_limit)
@@ -2025,7 +2180,9 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
             graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce,
             cl, lk, schedule, local_preprocessing, coalesce, src_only,
             adaptive_doubling, ghost_cache, relabel_skip, vsorted_index,
-            push_capacity, round_trace, pallas_minedges, grid_push)
+            push_capacity, round_trace, pallas_minedges, grid_push,
+            ckpt_every=ckpt_every, ckpt_out=ckpt_out,
+            resume_from=resume_from)
     cp = int(vps if push_capacity is None else push_capacity)
     # the fused engine has no bound for the deputy hop: a deputy relays
     # at most one full first-hop buffer per column
@@ -2112,26 +2269,243 @@ def execute_plan(graph: DistGraph, n: int, num_shards, plan: RoundPlan, *,
                  replan: bool = True,
                  round_trace: Optional[List[dict]] = None,
                  verify: bool = False, ckpt_every: Optional[int] = None,
-                 ckpt_out: Optional[List] = None, resume_from=None):
+                 ckpt_out: Optional[List] = None,
+                 resume_from: Optional[MSFCheckpoint] = None):
     """Replay a measured ``RoundPlan`` on a graph of the same shape.
 
     ``distributed_sharded_msf(graph, n, num_shards, plan=plan)``: the
     planned rounds run at their capacities, and a plan that does not fit
     replans (``replan=True``) or raises (``replan=False``, the strict
     mode).  ``round_trace`` is filled only by a replan: a fitting replay
-    has no host step between rounds to tabulate.  ``verify`` and the
-    checkpoint arguments raise ``NotImplementedError`` (ROADMAP.md
-    queue 1 item 10).
+    has no host step between rounds to tabulate.
+
+    ``verify=True`` checks the returned forest (``core/verify.py``)
+    against the structural invariants and the replay's own weight and
+    count, raising ``VerifyFailure`` rather than returning a wrong
+    forest.
+
+    Checkpoints: ``ckpt_every=k`` with ``ckpt_out`` cuts the replay at
+    planned rounds k, 2k, ... (``_planned_shard_fn`` segments) and runs
+    the certify + snapshot barrier between segments, each checkpoint
+    carrying its ``plan_pos``; ``resume_from=ck`` skips ahead to
+    ``ck.plan_pos`` with the restored carry.  The forest, labels, weight
+    and count equal the uninterrupted replay's; the counters add the
+    segments' in float64, and each later segment fills the ghost tables
+    again.
     """
+    if ckpt_every is None and ckpt_out is None and resume_from is None:
+        out = distributed_sharded_msf(graph, n, num_shards, plan=plan,
+                                      replan=replan, round_trace=round_trace)
+        if verify:
+            _verify_result(graph, n, num_shards, out)
+        return out
+    axis_sizes = shard_layout(num_shards)
+    p = math.prod(axis_sizes)
+    vps = vertices_per_shard(n, p)
+    cap = graph.cap_total // p
+    dev = graph.u.device
+    _check_plan(plan, n, axis_sizes, cap)
+    R = len(plan.rounds)
+    start = 0
+    carry = None
+    acc = np.zeros(8, np.float64)
+    total_ovf = total_res = 0
+    if resume_from is not None:
+        ck = resume_from.validate_for(n, p, cap)
+        if ck.plan_pos is None:
+            raise CheckpointError(
+                "this checkpoint was taken by the host driver (no plan "
+                "position); resume it via distributed_sharded_msf("
+                "resume_from=...) instead")
+        if not 0 < ck.plan_pos <= R:
+            raise CheckpointError(
+                f"checkpoint plan_pos={ck.plan_pos} is outside this "
+                f"plan's {R} rounds — it was taken against a different "
+                "plan")
+        start = int(ck.plan_pos)
+        carry = _checkpoint_carry(ck, dev)
+        acc += ck.stats_acc
+    stops = []
+    if ckpt_every:
+        k = int(ckpt_every)
+        stops = list(range((start // k + 1) * k, R, k))
+    stops.append(R)
+    out = None
+    for stop in stops:
+        if stop <= start:
+            continue
+        out = _run_segment(graph, n, axis_sizes, plan, start, stop, carry)
+        mask, weight, count, lab, ovf, residual, comm, dead, settled = out
+        o, r = torch.stack([ovf, residual]).tolist()
+        total_ovf += o
+        total_res += r
+        vals = _stat_values(comm)
+        vals[3] = 0.0  # the round count is the plan's, not a sum
+        acc += vals
+        if stop < R and not total_ovf:
+            lvl_next = plan.rounds[stop].level
+            fresh = lvl_next != plan.rounds[stop - 1].level
+            ck2 = _certified_checkpoint(
+                graph, n, axis_sizes, cap, plan.algorithm, plan.level_bounds,
+                stop, lvl_next,
+                sum(1 for j in range(stop) if plan.rounds[j].level
+                    == lvl_next),
+                stop, lab, mask.cpu().numpy(), dead.cpu().numpy(),
+                np.zeros(p * vps, bool) if fresh else settled.cpu().numpy(),
+                plan.ghost is not None, acc)
+            if ck2 is not None and ckpt_out is not None:
+                ckpt_out.append(ck2)
+        carry = (lab, mask, dead, settled)
+        start = stop
+
+    if out is None:  # resumed at the plan's end: nothing left to run
+        mask, lab = carry[1], carry[0]
+        w_h = graph.w.cpu().numpy()
+        weight = torch.tensor(np.sum(w_h[ck.mask], dtype=np.float64),
+                              dtype=torch.float32, device=dev)
+        count = torch.tensor(int(ck.mask.sum()), dtype=torch.int32,
+                             device=dev)
+    comm_total = _comm_from_acc(acc, plan.num_rounds, dev)
+    if total_ovf or total_res:
+        if not replan:
+            raise RuntimeError(
+                f"plan replay does not fit this graph (overflow="
+                f"{total_ovf}, residual levels={total_res}); pad the "
+                "plan, re-measure with plan_sharded_msf, or allow "
+                "replan=True")
+        return _replan_with_plan(graph, n, num_shards, plan,
+                                 round_trace=round_trace,
+                                 ckpt_every=ckpt_every, ckpt_out=ckpt_out)
+    result = (mask, weight, count, lab,
+              torch.tensor(total_ovf, dtype=torch.int32, device=dev),
+              comm_total)
     if verify:
-        raise _unported("verify_forest", "item 10 (batched replay, verify, "
-                        "checkpoints)")
-    if (ckpt_every is not None or ckpt_out is not None
-            or resume_from is not None):
-        raise _unported("checkpointed plan replay", "item 10 (batched "
-                        "replay, verify, checkpoints)")
-    return distributed_sharded_msf(graph, n, num_shards, plan=plan,
-                                   replan=replan, round_trace=round_trace)
+        _verify_result(graph, n, num_shards, result)
+    return result
+
+
+def _checkpoint_carry(ck: MSFCheckpoint, device: torch.device):
+    """A checkpoint's (lab, mask, dead, settled), copied to the device."""
+    return tuple(torch.tensor(x, device=device)
+                 for x in (ck.lab, ck.mask, ck.dead, ck.settled))
+
+
+def _verify_result(graph: DistGraph, n: int, num_shards, res):
+    """``verify_forest`` of an engine 6-tuple against its own weight and
+    count; raises ``VerifyFailure``."""
+    from repro_torch.core.verify import verify_forest
+    verify_forest(graph, n, num_shards, res[0], res[3],
+                  expected_weight=float(res[1]), expected_count=int(res[2]),
+                  device=graph.u.device)
+
+
+def execute_plan_batched(graphs, n: int, num_shards, plan: RoundPlan, *,
+                         replan=True, stack: bool = True,
+                         verify: bool = False,
+                         resume_from: Optional[
+                             Sequence[MSFCheckpoint]] = None,
+                         device: DeviceLike = None):
+    """Replay one measured ``RoundPlan`` on B same-shape graphs.
+
+    The requests go one after another through the planned executor on
+    ``device`` (the CUDA card when None, which raises where there is
+    none; the tests pass ``"cpu"``), each with its own overflow and
+    residual, so a request the plan does not fit never poisons the
+    others: it is re-solved alone by one fresh measured pass
+    (``replan=True``), the call raises naming the offending batch
+    indices (``replan=False``), or its result comes back as None for the
+    caller to handle (``replan="defer"``).
+
+    ``verify=True`` checks every returned forest against its own weight
+    and count; a forest that fails is treated like an ill-fitting
+    request: replanned and verified again strictly (``replan=True``),
+    deferred to None, or the ``VerifyFailure`` propagates
+    (``replan=False``).
+
+    Returns ``(results, flagged)``: ``results[i]`` is the engine's
+    6-tuple for request i (overflow 0 wherever it is not None), and
+    ``flagged`` the tuple of indices that fell back or were deferred.
+
+    ``stack=False`` takes ``graphs`` as one ``DistGraph`` of ``[B, p *
+    cap]`` tensors.  ``resume_from`` is one checkpoint per request, all
+    at one ``plan_pos``, from which the batch skips ahead.
+    """
+    dev = resolve_device(device)
+    axis_sizes = shard_layout(num_shards)
+    p = math.prod(axis_sizes)
+    if stack:
+        batch = [DistGraph(*(x.to(dev) for x in g)) for g in graphs]
+        for g in batch:
+            _check_plan(plan, n, axis_sizes, g.cap_total // p)
+    else:
+        stacked = DistGraph(*(x.to(dev) for x in graphs))
+        _check_plan(plan, n, axis_sizes, int(stacked.u.shape[1]) // p)
+        batch = [DistGraph(*(x[i] for x in stacked))
+                 for i in range(int(stacked.u.shape[0]))]
+    start, carries = 0, [None] * len(batch)
+    if resume_from is not None:
+        cks = list(resume_from)
+        if len(cks) != len(batch) or any(c is None for c in cks):
+            raise CheckpointError(
+                f"batched resume needs one checkpoint per request "
+                f"({len(batch)}), got {len(cks)} "
+                f"({sum(c is None for c in cks)} missing)")
+        poss = {c.plan_pos for c in cks}
+        if len(poss) != 1 or None in poss:
+            raise CheckpointError(
+                "batched resume needs every checkpoint at one shared "
+                f"plan position (one compiled segment), got {poss}")
+        for c in cks:
+            c.validate_for(n, p, batch[0].cap_total // p)
+        start = int(cks[0].plan_pos)
+        if not 0 < start <= len(plan.rounds):
+            raise CheckpointError(
+                f"checkpoint plan_pos={start} is outside this plan's "
+                f"{len(plan.rounds)} rounds — taken against a "
+                "different plan")
+        carries = [_checkpoint_carry(c, dev) for c in cks]
+    outs = [_run_segment(g, n, axis_sizes, plan, start, None, c)[:7]
+            for g, c in zip(batch, carries)]
+    fit = torch.stack([torch.stack([o[4], o[5]]) for o in outs]).tolist()
+    defer = replan == "defer"
+    bad = tuple(i for i, (o, r) in enumerate(fit) if o or r)
+    if bad and not replan:
+        raise RuntimeError(
+            f"plan replay does not fit batch requests {list(bad)} "
+            f"(overflow={[fit[i][0] for i in bad]}, residual="
+            f"{[fit[i][1] for i in bad]}); pad the plan, re-measure "
+            "with plan_sharded_msf, or allow replan=True")
+    results = []
+    for i, out in enumerate(outs):
+        if i not in bad:
+            mask, weight, count, lab, ovf, _, comm = out
+            results.append((mask, weight, count, lab, ovf, comm))
+        elif defer:
+            results.append(None)
+        else:
+            # this request alone falls back to one fresh measured pass
+            results.append(_replan_with_plan(batch[i], n, num_shards, plan))
+    if verify:
+        from repro_torch.core.verify import VerifyFailure
+        for i, res in enumerate(results):
+            if res is None:
+                continue
+            try:
+                _verify_result(batch[i], n, num_shards, res)
+            except VerifyFailure:
+                if defer:
+                    results[i] = None
+                    if i not in bad:
+                        bad = bad + (i,)
+                elif replan and i not in bad:
+                    # one strict rung: replan, verify again, else raise
+                    r2 = _replan_with_plan(batch[i], n, num_shards, plan)
+                    _verify_result(batch[i], n, num_shards, r2)
+                    results[i] = r2
+                    bad = bad + (i,)
+                else:
+                    raise
+    return results, bad
 
 
 def make_sharded_mst_step(n: int, cap_total: int, num_shards,

@@ -51,6 +51,42 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
         from_numpy(z, z, np.ones(3, np.float32), 4)
     assert from_numpy(z, z, np.ones(3, np.float32), 4,
                       device="cpu").u.device.type == "cpu"
+    # the entry points that take built tensors still need the card
+    # unless the CPU is named, whatever device the tensors are on
+    from repro_torch.core.distributed import build_dist_graph
+    from repro_torch.core.distributed_sharded import execute_plan_batched
+    from repro_torch.core.plan import synthetic_plan
+    from repro_torch.core.verify import verify_forest
+    from repro_torch.launch import chaos
+    u = np.array([0, 1, 2], np.int32)
+    g, _ = build_dist_graph(u, u + 1, np.ones(3, np.float32), 4, 2,
+                            device="cpu")
+    mask = torch.zeros(g.cap_total, dtype=torch.bool)
+    lab = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        verify_forest(g, 4, 2, mask, lab)
+    rep = verify_forest(g, 4, 2, mask, lab, device="cpu")
+    assert rep.ok and rep.components == 4 and rep.count == 0
+    plan = synthetic_plan(4, g.cap_total, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        execute_plan_batched([g], 4, 2, plan)
+    results, flagged = execute_plan_batched([g], 4, 2, plan, device="cpu")
+    assert results[0][0].device.type == "cpu" and int(results[0][2]) == 3
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chaos.main(["--smoke"])
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.chaos",
+                           "--smoke"], capture_output=True, text=True,
+                          timeout=120, env=_env())
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert "chaos: OK" not in proc.stdout
+
+
+def _env():
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in [env.get("PYTHONPATH")] if x])
+    return env
 
 
 def _run_smoke(cwd: Path):

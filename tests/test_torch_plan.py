@@ -408,14 +408,23 @@ def test_plan_measurement_refuses_a_lossy_pass():
 
 
 def test_replay_boundaries_raise_naming_their_item():
+    """The replay's verify and checkpoint arguments run; beside ``plan=``
+    the checkpoint arguments still raise, pointing at execute_plan."""
     g, n, _ = _port_graph("gnm")
     plan = ds.plan_sharded_msf(g, n, P)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ds.execute_plan(g, n, P, plan, verify=True)
+    base = ds.execute_plan(g, n, P, plan, replan=False)
+    res = ds.execute_plan(g, n, P, plan, replan=False, verify=True)
+    for a, b in zip(res[:5], base[:5]):
+        assert torch.equal(a, b)
+    cks = []
+    res = ds.execute_plan(g, n, P, plan, replan=False, ckpt_every=2,
+                          ckpt_out=cks)
+    assert torch.equal(res[0], base[0]) and torch.equal(res[3], base[3])
+    assert [c.plan_pos for c in cks] == list(range(2, plan.num_rounds, 2))
+    res = ds.execute_plan(g, n, P, plan, replan=False, resume_from=cks[-1])
+    assert torch.equal(res[0], base[0]) and int(res[2]) == int(base[2])
     for ckpt in (dict(ckpt_every=2), dict(ckpt_out=[]),
-                 dict(resume_from=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ds.execute_plan(g, n, P, plan, **ckpt)
+                 dict(resume_from=cks[0])):
         with pytest.raises(ValueError, match="execute_plan"):
             ds.distributed_sharded_msf(g, n, P, plan=plan, **ckpt)
 

@@ -255,8 +255,9 @@ def test_unported_levers_raise():
     """The port's boundary: every lever runs, the ghost cache included
     (also on the reference's defaults); a ghost push the layout cannot
     take raises, never downgraded; a plan replays, but one of another
-    shape raises; verified replay, the checkpoint arguments and the
-    replicated engine raise naming their ROADMAP item."""
+    shape raises; a replay verifies, and the driver takes and resumes
+    from checkpoints, but the fused engine refuses them; the replicated
+    engine raises naming its ROADMAP item."""
     u, v, w, n = FAMILIES["random"](0)
     g, _ = build_dist_graph(u, v, w, n, P, device=CPU)
     res = distributed_sharded_msf(g, n, P)  # the reference's defaults
@@ -279,12 +280,20 @@ def test_unported_levers_raise():
     with pytest.raises(ValueError, match="plans only transfer"):
         distributed_sharded_msf(g, n, P, plan=synthetic_plan(
             n + 1, g.cap_total, P))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        execute_plan(g, n, P, synthetic_plan(n, g.cap_total, P), verify=True)
+    base = distributed_sharded_msf(g, n, P)
+    res = execute_plan(g, n, P, synthetic_plan(n, g.cap_total, P),
+                       verify=True)
+    assert int(res[4]) == 0 and torch.equal(res[0], base[0])
+    cks = []
+    res = distributed_sharded_msf(g, n, P, ckpt_every=2, ckpt_out=cks)
+    assert cks and all(c.plan_pos is None for c in cks)
+    assert torch.equal(res[0], base[0])
+    res = distributed_sharded_msf(g, n, P, resume_from=cks[-1])
+    assert torch.equal(res[0], base[0]) and torch.equal(res[3], base[3])
     for ckpt in (dict(ckpt_every=2), dict(ckpt_out=[]),
-                 dict(resume_from=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            distributed_sharded_msf(g, n, P, **ckpt)
+                 dict(resume_from=cks[0])):
+        with pytest.raises(ValueError, match="shrinking-capacity"):
+            distributed_sharded_msf(g, n, P, shrink_capacities=False, **ckpt)
     edges = from_numpy(u, v, w, n, device=CPU)
     with pytest.raises(NotImplementedError, match="item 6"):
         minimum_spanning_forest(edges, engine="distributed",
