@@ -62,6 +62,23 @@ Phases, each fatal on failure (exit 1):
      n = 512 on the card — the planned and batched matrix on gnm and
      rgg2d, the grid-push cells, the recovery cells — with no ``SILENT``
      cell;
+  3f. (run right after phase 3e) serving at full width: ``MSFGateway(8,
+     batch_slots=2, verify=True, pallas_minedges=True)`` serves four gnm
+     requests on phase 3's u, v (phase 3's weights, then shuffled by
+     ``default_rng(1)``, ``(2)``, ``(3)``): request 0 must be phase 3's
+     cached-path forest, every forest scipy's weight with
+     n - #components edges, none rejected, the stats one miss, two
+     batches and a hit, and K1 must launch at both sites in the
+     measurement pass and the batched replays (counted apart from any
+     retry rung); each request's latency and layout build, each step's
+     time, requests/s and the peak are printed.  Then the launcher on
+     the card (``repro_torch.launch.serve_msf``): its smoke, and a gnm +
+     rgg2d mix at n = 2^16 (16 requests, 4 slots, oracle check);
+  3g. the replicated engine (``distributed_msf``) on phase 3's layout
+     for boruvka, filter_boruvka and boruvka_shrink, each after one
+     warm-up: edge set equal to phase 3's cached path, weight and count
+     scipy's, rounds and every CommStats field printed; then one
+     public-API solve with ``engine="distributed"``;
   3b. the earlier paths, each checked the same way: the lever path
      (``ghost_cache=False``, every other lever on), whose edge set the
      cached path must equal while serving hits, pushing, and shipping
@@ -70,6 +87,10 @@ Phases, each fatal on failure (exit 1):
   3c. the grid rung: ``num_shards=(4, 2), ghost_push="grid"`` (boruvka,
      same graph), whose mask must equal the flat push's, with every
      round a ghost round through the grid push and K1 at both sites;
+  3s. (after phase 3c) ``sample_sort`` of 8 shards x 2^21 float32 keys
+     with an int32 payload (85% valid, ``capacity_factor=2.0``): overflow
+     0, sorted across shard boundaries, the (key, payload) multiset kept,
+     timed;
   4. the cached, lever and ``OFF`` paths on RMAT (scale 16, average
      degree 8) and the static engine on that graph, all against the
      exact Kruskal edge set;
@@ -1168,6 +1189,278 @@ def robustness(dev, g, n, plan, driven_mask, g2, fitted):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: serving at full width through the gateway and its launcher
+# ---------------------------------------------------------------------------
+
+class ServeSplit:
+    """While active (inside ``K1Sites``), the host clock and K1's
+    launches at each MINEDGES site of every gateway step: each request's
+    layout build (by rid), the measurement pass, each batched replay and
+    each retry rung, and the verifier inside them (summed apart)."""
+
+    STEPS = ("plan_sharded_msf", "execute_plan_batched", "_replan_with_plan")
+
+    def __init__(self, sites, rid_of):
+        self.sites = sites
+        self.rid_of = rid_of  # id(request.w) -> rid
+        self.layout_s = {}
+        self.events = []  # (step, seconds, combine, owner)
+        self.verify_s = 0.0
+
+    def __enter__(self):
+        from repro_torch.core import verify
+        from repro_torch.serve import msf_gateway as gw
+        self._gw, self._verify = gw, verify
+        self._saved = {k: getattr(gw, k) for k in self.STEPS
+                       + ("build_dist_graph", "verify_forest")}
+        self._verify_fn = verify.verify_forest
+
+        def step(name, fn):
+            def run(*args, **kw):
+                c0, o0 = self.sites.combine, self.sites.owner
+                out, secs = wall(lambda: fn(*args, **kw))
+                self.events.append((name, secs, self.sites.combine - c0,
+                                    self.sites.owner - o0))
+                return out
+            return run
+
+        def layout(u, v, w, *args, **kw):
+            out, secs = wall(lambda: self._saved["build_dist_graph"](
+                u, v, w, *args, **kw))
+            self.layout_s[self.rid_of[id(w)]] = secs
+            return out
+
+        def timed_verify(fn):
+            def run(*args, **kw):
+                out, secs = wall(lambda: fn(*args, **kw))
+                self.verify_s += secs
+                return out
+            return run
+
+        for name in self.STEPS:
+            setattr(gw, name, step(name, self._saved[name]))
+        gw.build_dist_graph = layout
+        gw.verify_forest = timed_verify(self._saved["verify_forest"])
+        verify.verify_forest = timed_verify(self._verify_fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self._gw, name, fn)
+        self._verify.verify_forest = self._verify_fn
+        return False
+
+    def k1(self, name):
+        """K1 launches (per-run combine, owner-side) over the steps
+        named ``name``."""
+        return [sum(e[2] for e in self.events if e[0] == name),
+                sum(e[3] for e in self.events if e[0] == name)]
+
+
+def serve_full_width(dev, u, v, w, n, cached_mask):
+    """Phase 3f: ``MSFGateway(8, batch_slots=2, verify=True,
+    pallas_minedges=True)`` serves four gnm requests on phase 3's u, v:
+    request 0 with phase 3's weights, requests 1-3 with them shuffled by
+    ``default_rng(1)``, ``(2)`` and ``(3)``.  Request 0 must be phase
+    3's cached-path forest, every forest scipy's weight with
+    n - #components edges, none rejected; one miss, two batches, a hit;
+    K1 at both sites in the measurement pass and the batched replays,
+    counted apart from any retry rung.  Returns a dict of figures."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.msf_gateway import MSFGateway, MSFRequest
+
+    reqs = []
+    for rid in range(4):
+        wr = np.asarray(w).copy()
+        if rid:
+            np.random.default_rng(rid).shuffle(wr)
+        reqs.append(MSFRequest(rid=rid, family="gnm", u=u, v=v, w=wr, n=n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gw = MSFGateway(NUM_SHARDS, batch_slots=2, verify=True,
+                    pallas_minedges=True, device=dev)
+    reset_counts()
+    with K1Sites() as sites, ServeSplit(
+            sites, {id(r.w): r.rid for r in reqs}) as split:
+        t0 = time.perf_counter()
+        for r in reqs:
+            gw.submit(r)
+        gw.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    launched = owner_scatter_min.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = gw.stats
+    check(all(r.served_via in ("batched", "replanned") for r in reqs),
+          "serving: " + "; ".join(f"request {r.rid} {r.served_via} "
+                                  f"{r.error}" for r in reqs))
+    check((s.misses, s.batches) == (1, 2) and s.hits >= 1,
+          f"serving: stats {vars(s)}")
+    check(np.array_equal(reqs[0].edges, np.nonzero(cached_mask)[0]),
+          "serving: request 0's forest differs from phase 3's cached path")
+    for r in reqs:
+        exp, exp_edges = scipy_msf(u, v, r.w, n)
+        got = float(np.sum(r.w[r.edges].astype(np.float64)))
+        rel = abs(r.weight - exp) / exp
+        check(len(r.edges) == r.count == exp_edges,
+              f"serving request {r.rid}: {r.count} edges, scipy "
+              f"{exp_edges}")
+        check(rel < 1e-3 and abs(got - exp) <= 1e-9 * exp,
+              f"serving request {r.rid}: weight {r.weight!r} (float64 "
+              f"{got!r}) against scipy's {exp!r}")
+        log(f"3f request {r.rid}: {r.served_via}, latency {r.latency:.3f} s "
+            f"from submit (layout build {split.layout_s[r.rid]:.3f} s); "
+            f"{r.count} edges, weight {r.weight:.1f} (scipy {exp:.1f}, "
+            f"rel {rel:.2e})")
+    k1 = dict(measurement=split.k1("plan_sharded_msf"),
+              batched=split.k1("execute_plan_batched"),
+              rungs=split.k1("_replan_with_plan"))
+    check(k1["measurement"][0] > 0 and k1["measurement"][1] > 0
+          and k1["batched"][0] > 0 and k1["batched"][1] > 0,
+          f"serving: K1 did not launch at both sites {k1}")
+    check(launched == sum(sum(x) for x in k1.values()),
+          f"serving: K1 launched {launched} times, {k1} in the steps")
+    steps = "; ".join(f"{name} {secs:.3f} s (K1 {c} + {o})"
+                      for name, secs, c, o in split.events)
+    layout_s = sum(split.layout_s.values())
+    log(f"3f serving gnm n={n} m={len(u)}, 4 requests, batch_slots=2, "
+        f"verify=True: {secs:.3f} s wall, {4 / secs:.4f} requests/s; "
+        f"layout builds {layout_s:.3f} s ({100 * layout_s / secs:.1f}%); "
+        f"steps: {steps}; verify {split.verify_s:.3f} s in all; stats "
+        f"{json.dumps(vars(s))}; peak device memory {peak:.2f} GiB")
+    log(f"3f K1 launches (per-run combine, owner-side): {json.dumps(k1)}")
+    return dict(k1=k1, seconds=secs, layout_s=layout_s)
+
+
+def launcher_on_card():
+    """The serving launcher on the card, in process: its smoke (n = 256,
+    24 requests, oracle identity, hit rate > 0.5) and a gnm + rgg2d mix
+    at n = 2^16 with the oracle check, both through K1.  Returns K1's
+    launches in each."""
+    import contextlib
+    import io
+    from repro_torch.kernels.segmin.segmin import owner_scatter_min
+    from repro_torch.launch import serve_msf
+
+    runs = {"smoke": ["--smoke", "--pallas-minedges"],
+            "mix_n65536": ["--families", "gnm,rgg2d", "--sizes", "65536",
+                           "--requests", "16", "--slots", "4", "--check",
+                           "--pallas-minedges"]}
+    k1 = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve_msf.main(argv)
+        secs = time.perf_counter() - t0
+        k1[name] = owner_scatter_min.launches
+        out = buf.getvalue()
+        check("forests bit-identical" in out, f"launcher {name}: {out}")
+        check(k1[name] > 0, f"launcher {name}: K1 launched no time")
+        log(f"3f launcher {' '.join(argv)} ({secs:.1f} s, K1 launches "
+            f"{k1[name]}): " + " | ".join(out.strip().splitlines()))
+    return k1
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the replicated mesh engine at full width
+# ---------------------------------------------------------------------------
+
+def replicated_engine(dev, g, n, u, v, w, cached_mask, ref_weight,
+                      ref_count):
+    """Phase 3g: ``distributed_msf`` on phase 3's layout for boruvka,
+    filter_boruvka and boruvka_shrink, each timed after one warm-up: the
+    edge set must equal phase 3's cached path, the weight and edge count
+    scipy's.  Then one public-API solve (``engine="distributed"``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import distributed_msf
+    from repro_torch.core.graph import from_numpy
+    from repro_torch.core.mst import minimum_spanning_forest
+
+    eid = g.eid.cpu().numpy()
+    want = np.nonzero(cached_mask)[0]
+    out = {}
+    for algo in ("boruvka", "filter_boruvka", "boruvka_shrink"):
+        distributed_msf(g, n, NUM_SHARDS, algorithm=algo)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        res, secs = wall(lambda: distributed_msf(g, n, NUM_SHARDS,
+                                                 algorithm=algo))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mask, weight, count, _, comm = res
+        sel = np.unique(eid[mask.cpu().numpy()])
+        rel = abs(float(weight) - ref_weight) / ref_weight
+        check(np.array_equal(sel, want), f"replicated {algo}: the edge set "
+              "differs from phase 3's cached path")
+        check(int(count) == ref_count and rel < 1e-3,
+              f"replicated {algo}: {int(count)} edges (scipy {ref_count}), "
+              f"weight rel {rel:.2e}")
+        stats = {f: float(x) for f, x in zip(comm._fields, comm)}
+        log(f"3g replicated engine gnm {algo}: {secs:.3f} s on phase 3's "
+            f"layout after one warm-up; rounds {int(comm.rounds)}; "
+            f"CommStats {json.dumps(stats)}; edge set equals the cached "
+            f"path's, weight rel {rel:.2e}; peak device memory "
+            f"{peak:.2f} GiB ({held:.2f} GiB held before)")
+        out[algo] = secs
+    edges = from_numpy(u, v, w, n, device=dev)
+    (mask, weight), secs = wall(lambda: minimum_spanning_forest(
+        edges, engine="distributed", num_shards=NUM_SHARDS))
+    check(np.array_equal(np.nonzero(mask.cpu().numpy())[0], want),
+          "replicated public API: the edge set differs")
+    log(f"3g public API engine='distributed' (boruvka): {secs:.3f} s wall "
+        "(incl. host layout build), edge set equals the cached path's")
+    out["api"] = secs
+    return out
+
+
+def sample_sort_phase(dev):
+    """``sample_sort`` of 8 shards x 2^21 float32 keys with an int32
+    payload (``default_rng(0)``, 85% valid, ``capacity_factor=2.0``):
+    overflow 0, keys sorted across shard boundaries, the (key, payload)
+    multiset kept.  Timed after one warm-up."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.sorting import sample_sort
+
+    p, L = NUM_SHARDS, 1 << 21
+    rng = np.random.default_rng(0)
+    keys = torch.from_numpy(rng.random((p, L), np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((p, L)) < 0.85).to(dev)
+    vals = torch.arange(p * L, dtype=torch.int32, device=dev).view(p, L)
+
+    def run():
+        return sample_sort(keys, vals, valid, (p,), capacity_factor=2.0)
+
+    run()
+    res, secs = wall(run)
+    check(int(res.overflow) == 0, f"sample sort: overflow "
+          f"{int(res.overflow)}")
+    got_vals = res.payload[res.ok]
+    check(torch.equal(torch.sort(got_vals).values,
+                      vals[valid].sort().values),
+          "sample sort: the payload multiset changed")
+    check(torch.equal(res.key[res.ok], keys.view(-1)[got_vals.long()]),
+          "sample sort: a key lost its payload")
+    fin = torch.where(res.ok, res.key, float("nan"))
+    lo = torch.where(res.ok, res.key, float("inf")).min(1).values
+    hi = torch.where(res.ok, res.key, -float("inf")).max(1).values
+    rows_sorted = bool(((fin[:, 1:] >= fin[:, :-1]) | ~res.ok[:, 1:])
+                       .all())
+    check(rows_sorted and bool((hi[:-1] <= lo[1:]).all()),
+          "sample sort: keys not sorted across shard boundaries")
+    log(f"sample sort {p} x {L} float32 keys + int32 payload (85% valid, "
+        f"capacity_factor 2.0): {secs * 1e3:.3f} ms after one warm-up; "
+        f"overflow 0, sorted across shard boundaries, (key, payload) "
+        f"multiset kept; received per shard {res.ok.sum(1).tolist()}")
+    return secs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: K1 timing at the engine's shape
 # ---------------------------------------------------------------------------
 
@@ -1562,7 +1855,18 @@ def main() -> int:
             ru, rv, rw, rn = generators.rmat(RMAT_SCALE, (1 << RMAT_SCALE)
                                              * RMAT_DEGREE // 2, seed=SEED)
             never_silent(dev, ru, rv, rw, rn)
-            del layout, driven, plan, b_plan, second
+            del driven, plan, b_plan, second
+            # phase 3f: serving at full width, then the launcher
+            t0 = time.perf_counter()
+            served = serve_full_width(dev, u, v, w, n, cached["boruvka"][0])
+            served["k1"]["launcher"] = launcher_on_card()
+            log(f"phase 3f: {time.perf_counter() - t0:.1f} s wall")
+            # phase 3g: the replicated engine on phase 3's layout
+            t0 = time.perf_counter()
+            replicated_engine(dev, layout, n, u, v, w, cached["boruvka"][0],
+                              ref_weight, ref_count)
+            log(f"phase 3g: {time.perf_counter() - t0:.1f} s wall")
+            del layout
 
     # phase 3c: the grid rung of the ghost push
     torch.cuda.reset_peak_memory_stats()
@@ -1584,6 +1888,9 @@ def main() -> int:
     log(f"grid rung (num_shards={GRID_SHARDS}, ghost_push='grid'): mask "
         "equals the flat push's, every round through the grid push")
     del mask
+
+    # sample sort at the main path's shard count
+    sample_sort_phase(dev)
 
     # phase 4: RMAT through every path, and the static engine
     edges = from_numpy(ru, rv, rw, rn, device=dev)
@@ -1740,7 +2047,8 @@ def main() -> int:
                                             rounds=r["rounds"],
                                             sentinels=r["sentinels"])
                                     for a, r in replays.items()},
-                    robustness_paths=robust["k1"]),
+                    robustness_paths=robust["k1"],
+                    served_path=served["k1"]),
                dict(name="relabel", route="cuda", source=K2_SOURCE,
                     replaces=K2_REPLACES,
                     launches=big["launches"]["relabel"],

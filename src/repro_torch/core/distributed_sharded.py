@@ -78,7 +78,8 @@ from repro_torch.comm.exchange import (ExchangeStats, _hops,
                                        routed_exchange, scatter_updates,
                                        scatter_updates_grid)
 from repro_torch.core.distributed import (ESENT, CommStats, DistGraph,
-                                          _doubling_iters, _weight_pivots,
+                                          _doubling_iters, _scatter_reduce,
+                                          _take, _weight_pivots,
                                           quantize_capacity)
 from repro_torch.core.graph import reference_order_sum
 from repro_torch.core.msf_checkpoint import CheckpointError, MSFCheckpoint
@@ -94,6 +95,10 @@ _ESENT = int(ESENT)
 MAX_GHOST_SHARDS = 31
 MAX_GHOST_SHARDS_GRID = MAX_GHOST_SHARDS ** 2
 
+# the reference's default checkpoint cadence (rounds between certified
+# snapshots), which the serving gateway's retry ladder takes by default
+DEFAULT_CKPT_EVERY = 8
+
 Runs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -105,20 +110,6 @@ def _bases(p: int, vps: int, device: torch.device) -> torch.Tensor:
     """``[p, 1]`` first vertex id owned by each shard."""
     return (torch.arange(p, dtype=torch.int32, device=device) * vps).view(
         p, 1)
-
-
-def _take(table: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
-    """``table[s, off[s, ...]]`` per shard; ``off`` in range."""
-    p = table.shape[0]
-    return table.gather(1, off.reshape(p, -1).long()).view(off.shape)
-
-
-def _scatter_reduce(size: int, fill, idx: torch.Tensor, src: torch.Tensor,
-                    reduce: str) -> torch.Tensor:
-    """``full((p, size), fill).at[s, idx].{min,max}(src)`` per shard."""
-    out = torch.full((idx.shape[0], size), fill, dtype=src.dtype,
-                     device=src.device)
-    return out.scatter_reduce_(1, idx.long(), src, reduce)
 
 
 def _scatter_any(mask: torch.Tensor, idx: torch.Tensor,
@@ -1954,10 +1945,13 @@ def _replan_with_plan(graph: DistGraph, n: int, num_shards,
                       plan: RoundPlan,
                       round_trace: Optional[List[dict]] = None,
                       ckpt_every: Optional[int] = None,
-                      ckpt_out: Optional[List] = None):
+                      ckpt_out: Optional[List] = None,
+                      resume_from: Optional[MSFCheckpoint] = None):
     """One fresh measured pass with the plan's frozen levers: the
-    fallback of a replay that does not fit.  A checkpointed replay's
-    cadence passes through to the driver."""
+    fallback of a replay that does not fit, and the serving gateway's
+    retry rung.  The checkpoint arguments pass through to the driver, so
+    a rung takes certified snapshots and the next rung resumes from the
+    last one."""
     return distributed_sharded_msf(
         graph, n, num_shards, algorithm=plan.algorithm,
         num_levels=len(plan.level_bounds), schedule=plan.schedule,
@@ -1970,7 +1964,7 @@ def _replan_with_plan(graph: DistGraph, n: int, num_shards,
         relabel_skip=plan.relabel_skip,
         vsorted_index=plan.vsorted_index,
         pallas_minedges=plan.pallas_minedges, round_trace=round_trace,
-        ckpt_every=ckpt_every, ckpt_out=ckpt_out)
+        ckpt_every=ckpt_every, ckpt_out=ckpt_out, resume_from=resume_from)
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,10 @@ on ``engine``:
   * ``"dynamic"`` — the host-orchestrated recursion with compaction and
     a Borůvka base case on the edges' device (``core/filter_boruvka.py``;
     ``**kw`` goes to ``filter_boruvka_dynamic``);
+  * ``"distributed"`` — the replicated-label engine over ``num_shards``
+    stacked shards (``core/distributed.py: distributed_msf``): every
+    shard sees the dense ``[n]`` label vector, and ``algorithm`` may
+    also be ``boruvka_shrink`` or ``boruvka_shrink_srconly``;
   * ``"distributed_sharded"`` — the sharded-label engine over
     ``num_shards`` stacked shards (``core/distributed_sharded.py``; the
     reference takes a mesh here): an int ``p``, or an ``(R, C)`` pair
@@ -16,9 +20,6 @@ on ``engine``:
     knobs pass through ``**kw``, ``plan=`` (a ``RoundPlan`` measured by
     ``plan_sharded_msf`` on the layout this dispatch builds) and
     ``replan=`` included, so a plan replays from here too.
-
-``engine="distributed"`` (the replicated mesh engine) is not ported yet
-and raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.boruvka import boruvka_msf
-from repro_torch.core.distributed import build_dist_graph
+from repro_torch.core.distributed import build_dist_graph, distributed_msf
 from repro_torch.core.distributed_sharded import (distributed_sharded_msf,
                                                   shard_layout)
 from repro_torch.core.filter_boruvka import (boruvka_dynamic,
@@ -38,18 +39,19 @@ from repro_torch.core.filter_boruvka import (boruvka_dynamic,
 from repro_torch.core.graph import EdgeList, forest_weight
 
 
-def _sharded_dispatch(edges: EdgeList, num_shards, algorithm: str,
-                      **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bridge the single-array public API onto the sharded engine.
+def _distributed_dispatch(edges: EdgeList, num_shards, engine: str,
+                          algorithm: str,
+                          **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bridge the single-array public API onto the distributed engines.
 
     Host-side: drop padding, double + sort + 1D-partition the edges (the
-    engine's input format), run, then reduce the slot mask back to the
+    engines' input format), run, then reduce the slot mask back to the
     caller's edge positions via the undirected edge ids.  ``kw`` reaches
-    ``distributed_sharded_msf`` whole, a ``plan`` with it: the layout
-    built here is ``build_dist_graph`` of the finite edges, the shape a
-    plan must have been measured at.  Repeated solves of one graph
-    should build a ``DistGraph`` once and call ``distributed_sharded_msf``
-    (or ``execute_plan``) directly.
+    the engine whole, a sharded ``plan`` with it: the layout built here
+    is ``build_dist_graph`` of the finite edges, the shape a plan must
+    have been measured at.  Repeated solves of one graph should build a
+    ``DistGraph`` once and call the engine (or ``execute_plan``)
+    directly.
     """
     dev = edges.u.device
     u = edges.u.cpu().numpy()
@@ -58,13 +60,17 @@ def _sharded_dispatch(edges: EdgeList, num_shards, algorithm: str,
     idx = np.nonzero(np.isfinite(w))[0]
     g, _ = build_dist_graph(u[idx], v[idx], w[idx], edges.n,
                             math.prod(shard_layout(num_shards)), device=dev)
-    res = distributed_sharded_msf(g, edges.n, num_shards,
-                                  algorithm=algorithm, **kw)
-    overflow = int(res[4])
-    if overflow:  # hard error, not assert: must survive python -O
-        raise RuntimeError(
-            f"exchange overflow ({overflow} items): retry with larger "
-            "edge_capacity/label_capacity")
+    run = (distributed_msf if engine == "distributed"
+           else distributed_sharded_msf)
+    res = run(g, edges.n, num_shards, algorithm=algorithm, **kw)
+    # res: (mask, weight, count, labels, stats) for distributed, plus an
+    # overflow count at [4] (stats moves to [5]) for distributed_sharded
+    if engine == "distributed_sharded":
+        overflow = int(res[4])
+        if overflow:  # hard error, not assert: must survive python -O
+            raise RuntimeError(
+                f"exchange overflow ({overflow} items): retry with larger "
+                "edge_capacity/label_capacity")
     mask_slots = res[0].cpu().numpy()
     sel = np.unique(g.eid.cpu().numpy()[mask_slots])
     out = np.zeros(edges.m, bool)
@@ -87,16 +93,14 @@ def minimum_spanning_forest(edges: EdgeList, *, algorithm: str = "boruvka",
     """
     if num_buckets is not None and num_buckets < 1:
         raise ValueError(f"num_buckets must be >= 1, got {num_buckets}")
-    if engine == "distributed_sharded":
+    if engine in ("distributed", "distributed_sharded"):
         if num_shards is None:  # hard error, not assert
             raise ValueError(f"{engine} engine needs num_shards")
         if num_buckets is not None:
+            # the distributed engines call their filter knob num_levels
             kw.setdefault("num_levels", num_buckets)
-        return _sharded_dispatch(edges, num_shards, algorithm, **kw)
-    if engine == "distributed":
-        raise NotImplementedError(
-            "engine='distributed' is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1 item 6: replicated mesh engine)")
+        return _distributed_dispatch(edges, num_shards, engine, algorithm,
+                                     **kw)
     if engine == "static":
         if algorithm == "boruvka":
             mask, _ = boruvka_msf(edges.u, edges.v, edges.w, edges.n)

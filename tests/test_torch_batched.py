@@ -33,7 +33,7 @@ from repro_torch.core.distributed import DistGraph, build_dist_graph
 from repro_torch.core.msf_checkpoint import CheckpointError
 from repro_torch.core.plan import RoundPlan
 from repro_torch.data import generators
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 CPU = torch.device("cpu")
 N, SEED = 512, 7
@@ -129,7 +129,7 @@ def ref(tmp_path_factory):
     body = (f"OUT = {str(path)!r}\nN = {N}\nSEED = {SEED}\n"
             f"STATS = {STATS!r}\nRESULT = {RESULT!r}\nPLAN = {plan!r}\n"
             + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=8, timeout=900)
+    assert "OK" in run_reference(body, ndev=8, timeout=900)
     with np.load(path) as data:
         return dict(data)
 

@@ -34,7 +34,7 @@ from repro_torch.core.distributed import DistGraph
 from repro_torch.core.msf_checkpoint import (CheckpointError, MSFCheckpoint,
                                              latest_certified)
 from repro_torch.core.plan import RoundPlan
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 CPU = torch.device("cpu")
 N, SEED = 512, 7
@@ -130,7 +130,7 @@ def ref(tmp_path_factory):
     body = (f"OUT = {str(path)!r}\nN = {N}\nSEED = {SEED}\n"
             f"STATS = {STATS!r}\nRESULT = {RESULT!r}\nALGOS = {ALGOS!r}\n"
             + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=8, timeout=900)
+    assert "OK" in run_reference(body, ndev=8, timeout=900)
     with np.load(path) as data:
         return dict(data)
 

@@ -32,7 +32,7 @@ from repro_torch.core.distributed import build_dist_graph
 from repro_torch.core.plan import RoundPlan
 from repro_torch.data import generators
 from repro_torch.launch.chaos import FAULT_MATRIX, GRID_FAULT_MATRIX
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 CPU = torch.device("cpu")
 N, SEED = 256, 7
@@ -153,7 +153,7 @@ def ref(tmp_path_factory, plans):
     body = (f"OUT = {str(path)!r}\nN = {N}\nSEED = {SEED}\n"
             f"SELECT_CASES = {SELECT_CASES!r}\nCELLS = {CELLS!r}\n"
             f"STATS = {STATS!r}\nPLANS = {plans!r}\n" + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=8, timeout=900)
+    assert "OK" in run_reference(body, ndev=8, timeout=900)
     with np.load(path) as data:
         return dict(data)
 

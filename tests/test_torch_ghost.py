@@ -1,8 +1,8 @@
 """The port's ghost-vertex label cache against the JAX reference, bit for
 bit: the ghost rows of the lever matrix.
 
-One module-scoped fixture runs the reference in a few subprocesses at
-once (8 virtual CPU devices) over the ghost rows of ``COMBOS``
+One module-scoped fixture runs the reference in a few subprocesses, one
+after another (8 virtual CPU devices), over the ghost rows of ``COMBOS``
 (tests/test_engine_equivalence.py: the ``OFF`` + cache sub-matrix, flat
 capacities, and the defaults, the last with both algorithms) on four
 families; the two rows that differ only in ``coalesce``, which the
@@ -20,7 +20,6 @@ tests/test_torch_ghost_contracts.py, which shares this file's runner.
 """
 import inspect
 import math
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -34,7 +33,7 @@ from repro_torch.core.graph import from_numpy
 from repro_torch.core.mst import minimum_spanning_forest
 from tests.helpers import graph_families
 from tests.helpers.graph_families import FAMILIES
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 from tests.test_torch_sharded_levers import _assert_same, _host_state
 
 CPU = torch.device("cpu")
@@ -159,23 +158,20 @@ def _run_group(path, group, script=REFERENCE):
     body = (f"OUT = {str(path)!r}\nRUNS = {group!r}\nROWS = {ROWS!r}\n"
             f"STATS = {STATS!r}\n" + inspect.getsource(make_graph)
             + inspect.getsource(run_key) + script)
-    assert "OK" in run_multidevice(body, ndev=ndev, timeout=900)
+    assert "OK" in run_reference(body, ndev=ndev, timeout=900)
     with np.load(path) as data:
         return dict(data)
 
 
 def reference(tmp, groups, script=REFERENCE):
-    """The reference's runs of ``groups``, one subprocess a group, all at
-    once (their compile time dominates), as one dict.  ``script`` is the
-    body each subprocess runs over its ``RUNS`` (this module's
-    ``REFERENCE`` by default); it writes its arrays to ``OUT``."""
-    with ThreadPoolExecutor(len(groups)) as pool:
-        parts = pool.map(_run_group, [tmp / f"group{i}.npz"
-                                      for i in range(len(groups))], groups,
-                         [script] * len(groups))
-        out = {}
-        for part in parts:
-            out.update(part)
+    """The reference's runs of ``groups``, one subprocess a group, one
+    after another, as one dict.  (Forked all at once they cost about a
+    third more CPU, which the whole suite pays.)  ``script`` is the body
+    each subprocess runs over its ``RUNS`` (this module's ``REFERENCE``
+    by default); it writes its arrays to ``OUT``."""
+    out = {}
+    for i, group in enumerate(groups):
+        out.update(_run_group(tmp / f"group{i}.npz", group, script))
     return out
 
 

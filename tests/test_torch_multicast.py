@@ -22,7 +22,7 @@ from repro_torch.comm.exchange import (ExchangeStats, _axis_masks_to_copies,
                                        _mask_to_copies, scatter_updates,
                                        scatter_updates_grid)
 from repro_torch.comm.grid_alltoall import all_to_all_axis
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 SHARDS = P = 8
 STATS = ExchangeStats._fields
@@ -108,7 +108,7 @@ def ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_reference_multicast") / "ref.npz"
     body = (f"OUT = {str(path)!r}\nCASES = {CASES!r}\nSTATS = {STATS!r}\n"
             f"SHARDS = {SHARDS}\n" + inspect.getsource(_inputs) + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=P, timeout=600)
+    assert "OK" in run_reference(body, ndev=P, timeout=600)
     with np.load(path) as data:
         return dict(data)
 

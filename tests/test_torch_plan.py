@@ -6,7 +6,7 @@ broken plans rejected, and equal ``pad``, ``synthetic_plan`` and cache
 keys.
 
 One module-scoped fixture runs the reference (the runner of
-tests/test_torch_ghost.py, three 8-device subprocesses at once):
+tests/test_torch_ghost.py, three 8-device subprocesses one after another):
 ``plan_sharded_msf`` with ``pallas_minedges=False`` (its kernel path
 does not run under this JAX, ROADMAP.md queue 3) on gnm and rgg2d at
 n = 512, average degree 8, seed 7, with both algorithms, and a grid plan

@@ -113,6 +113,21 @@ EXCHANGE_OUT = ("recv_a", "recv_b", "recv_ok", "sent_ok", "slot", "reply",
                 "overflow")
 
 
+def run_reference(body: str, ndev: int = 8, timeout: int = 900) -> str:
+    """``run_multidevice`` for the port's reference fixtures.
+
+    XLA's CPU collectives abort a process whose device threads miss a
+    rendezvous by 40 s ("Termination timeout"), which a loaded machine
+    can cause.  Such a crash computes nothing to compare, so the
+    subprocess runs once more; any other failure raises."""
+    try:
+        return run_multidevice(body, ndev=ndev, timeout=timeout)
+    except AssertionError as exc:
+        if "Termination timeout" not in str(exc):
+            raise
+    return run_multidevice(body, ndev=ndev, timeout=timeout)
+
+
 def exchange_inputs(L, seed, p=8):
     rng = np.random.default_rng(seed)
     lo, hi = (-2, p + 2) if seed % 2 else (0, p)
@@ -131,7 +146,7 @@ def ref(tmp_path_factory):
             f"EXCHANGE_CASES = {EXCHANGE_CASES!r}\n"
             f"EXCHANGE_OUT = {EXCHANGE_OUT!r}\n"
             + inspect.getsource(exchange_inputs) + REFERENCE)
-    out = run_multidevice(body, ndev=8, timeout=600)
+    out = run_reference(body, ndev=8, timeout=600)
     assert "OK" in out
     with np.load(path) as data:
         return dict(data)
@@ -257,7 +272,7 @@ def test_unported_levers_raise():
     take raises, never downgraded; a plan replays, but one of another
     shape raises; a replay verifies, and the driver takes and resumes
     from checkpoints, but the fused engine refuses them; the replicated
-    engine raises naming its ROADMAP item."""
+    engine, ported too, returns the oracle's forest."""
     u, v, w, n = FAMILIES["random"](0)
     g, _ = build_dist_graph(u, v, w, n, P, device=CPU)
     res = distributed_sharded_msf(g, n, P)  # the reference's defaults
@@ -295,6 +310,8 @@ def test_unported_levers_raise():
         with pytest.raises(ValueError, match="shrinking-capacity"):
             distributed_sharded_msf(g, n, P, shrink_capacities=False, **ckpt)
     edges = from_numpy(u, v, w, n, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        minimum_spanning_forest(edges, engine="distributed",
-                                algorithm="boruvka", num_shards=P)
+    kmask, kweight = oracle.kruskal(u, v, w, n)
+    mask, wt = minimum_spanning_forest(edges, engine="distributed",
+                                       algorithm="boruvka", num_shards=P)
+    np.testing.assert_array_equal(mask.numpy(), kmask)
+    assert abs(float(wt) - kweight) < 1e-3 * max(1.0, kweight)

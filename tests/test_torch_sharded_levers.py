@@ -8,7 +8,7 @@ minus the cache rows), all levers but the cache with the v column
 coalesced in slot order, all levers but the cache with the shrinking
 driver and with flat capacities, and undersized ``edge_capacity`` runs
 whose overflow garbage must be reproduced too.  The reference is split over a few subprocesses that
-run at once (its compile time dominates).  Each result — mask, weight,
+run one after another.  Each result — mask, weight,
 count, labels, overflow, every ``CommStats`` field and every
 ``round_trace`` row — must come out of ``repro_torch`` on the CPU
 identical, with ``pallas_minedges`` False and True (K1's plain version
@@ -22,7 +22,6 @@ LOCALPREPROCESSING loop is checked to leave a stopped shard as it is.
 import inspect
 import itertools
 import json
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -39,7 +38,7 @@ from repro_torch.core.graph import from_numpy
 from repro_torch.core.mst import minimum_spanning_forest
 from tests.helpers import graph_families
 from tests.helpers.graph_families import FAMILIES
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 CPU = torch.device("cpu")
 P = 8
@@ -122,20 +121,19 @@ def _run_group(path, group):
             f"RUNS = {group!r}\n"
             f"ROWS = {ROWS!r}\n"
             f"STATS = {STATS!r}\n" + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=8, timeout=900)
+    assert "OK" in run_reference(body, ndev=8, timeout=900)
     with np.load(path) as data:
         return dict(data)
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
+    # one subprocess after another: forked all at once they cost about
+    # a third more CPU, which the whole suite pays
     tmp = tmp_path_factory.mktemp("jax_reference_levers")
-    with ThreadPoolExecutor(len(GROUPS)) as pool:
-        parts = pool.map(_run_group, [tmp / f"group{i}.npz"
-                                      for i in range(len(GROUPS))], GROUPS)
-        out = {}
-        for part in parts:
-            out.update(part)
+    out = {}
+    for i, group in enumerate(GROUPS):
+        out.update(_run_group(tmp / f"group{i}.npz", group))
     return out
 
 

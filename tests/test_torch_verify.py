@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.distributed import DistGraph
 from repro_torch.core.verify import VerifyFailure, VerifyReport, verify_forest
-from tests.helpers.subproc import run_multidevice
+from tests.test_torch_sharded import run_reference
 
 CPU = torch.device("cpu")
 N, EXTRA, SEED = 512, 13, 7
@@ -107,7 +107,7 @@ def ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("jax_reference_verify") / "ref.npz"
     body = (f"OUT = {str(path)!r}\nN = {N}\nEXTRA = {EXTRA}\n"
             f"SEED = {SEED}\nCASES = {CASES!r}\n" + REFERENCE)
-    assert "OK" in run_multidevice(body, ndev=8, timeout=600)
+    assert "OK" in run_reference(body, ndev=8, timeout=600)
     with np.load(path) as data:
         return dict(data)
 
