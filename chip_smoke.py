@@ -121,7 +121,27 @@ Phases, each fatal on failure (exit 1):
   8. time K2 and K3 at phase 6's 2^24-edge shape (round-1 and round-3
      labels, and K2's 2^15-entry table) beside their plain versions and
      their bounds from device-memory bytes, and K3 beside one
-     ``scatter_reduce_`` of a packed key into a per-run table.
+     ``scatter_reduce_`` of a packed key into a per-run table;
+  9. the LM serving path (plain PyTorch: no kernel of its own, so every
+     kernel's count over it is 0, reported as ``lm_path``):
+     9a. llama3.2-3b at full width and depth (28 layers, d 3072, GQA
+         24/8, vocab 128,256, bf16) drawn from the seed on the card;
+         ``ServeEngine(batch_slots=4, max_len=512)`` serves 8 requests
+         (4-token prompts, ``max_new=32``) to completion: tokens/s, ms a
+         step, peak memory, the step's roofline bound
+         (``launch/roofline.py: RooflineTerms``), the device busy share
+         and kernel launches of one step (``torch.profiler``); the
+         teacher-forced decode of request 0's tokens against
+         ``forward_prefill`` of them (within 5% of the largest logit,
+         its argmax among the prefill's top 5); one prefill of B = 1,
+         S = 2048 beside its bound;
+     9b. every arch's smoke config in float32, plus the int8 KV cache
+         and blockwise attention on llama3.2 and absorbed MLA on
+         deepseek-v2: prefill and 4 decode steps on the card against the
+         port's own CPU run on the same parameters (1e-4 relative);
+     9c. deepseek-v2-236b at full width, depth cut from 60 to 2 layers
+         (1 dense, 1 MoE with MLA): one prefill (B = 2, S = 64) and 4
+         decode steps, finite logits.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi`` reports them, the one before that a JSON object with one
@@ -635,13 +655,23 @@ class HostBounds:
         return False
 
 
-def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+def kernel_wrappers():
+    """The wrappers of K1, K2 and K3, each with its launch count."""
     from repro_torch.kernels.relabel.relabel import relabel
     from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
                                                    segmin_candidates)
-    for fn in (owner_scatter_min, relabel, segmin_candidates):
+    return owner_scatter_min, relabel, segmin_candidates
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for fn in kernel_wrappers():
         fn.launches = 0
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count by name."""
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 def run_main_path(dev, u, v, w, n, algorithm, levers, warm=True,
@@ -1722,6 +1752,372 @@ def time_k3(directed, labels, block=512, reps=20):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM serving path (no kernel of its own: plain PyTorch)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "llama3.2-3b"
+LM_SLOTS, LM_MAX_LEN = 4, 512
+LM_REQUESTS, LM_PROMPT, LM_MAX_NEW = 8, 4, 32
+LM_PREFILL_LEN = 2048
+# teacher-forced decode against the parallel prefill, bf16 at full width:
+# 8 significant bits, and the two paths round their products at other
+# shapes (GEMV against GEMM, a 64-slot masked buffer against a causal
+# 36 x 36 score matrix) through 28 layers
+LM_DECODE_REL = 5e-2
+LM_CARD_REL = 1e-4  # float32 smoke configs, the card against the CPU
+LM_SMOKE_B, LM_SMOKE_S, LM_SMOKE_T, LM_SMOKE_STEPS = 2, 8, 16, 4
+CUT_ARCH, CUT_LAYERS = "deepseek-v2-236b", 2  # 1 dense + 1 MoE layer
+
+
+def lm_step_terms(cfg, params, B, T):
+    """The roofline of one decode step of ``B`` slots over length-``T``
+    caches (``launch/roofline.py: RooflineTerms``): every weight read
+    once (of the embedding table only the ``B`` gathered rows), the whole
+    KV buffer read (the static-shape step attends over all ``T`` rows
+    under its mask); flops of the weight products and of the scores and
+    values over ``T``."""
+    from repro_torch.launch.roofline import RooflineTerms
+    size = lambda t: t.numel() * t.element_size()
+    embed = params["embed"]
+    weights = (sum(size(p) for p in params.parameters()) - size(embed)
+               + B * embed.shape[1] * embed.element_size())
+    kv = (2 * cfg.num_layers * B * T * cfg.num_kv_heads * cfg.hd
+          * embed.element_size())
+    n_mm = sum(p.numel() for p in params.parameters()) - embed.numel()
+    flops = (2 * B * n_mm
+             + 4 * B * T * cfg.num_heads * cfg.hd * cfg.num_layers)
+    return RooflineTerms(flops, weights + kv, 0, 1), weights, kv
+
+
+def lm_prefill_terms(cfg, params, S):
+    """The roofline of one causal prefill of ``S`` tokens that keeps the
+    last position's logits: the layer weights at every position, the
+    unembedding once, the causal half of the scores and values."""
+    from repro_torch.launch.roofline import RooflineTerms
+    size = lambda t: t.numel() * t.element_size()
+    embed, unembed = params["embed"], params["unembed"]
+    n_layers = (sum(p.numel() for p in params.parameters())
+                - embed.numel() - unembed.numel())
+    flops = (2 * S * n_layers + 2 * unembed.numel()
+             + 2 * S * S * cfg.num_heads * cfg.hd * cfg.num_layers)
+    nbytes = (sum(size(p) for p in params.parameters()) - size(embed)
+              + S * embed.shape[1] * embed.element_size())
+    return RooflineTerms(flops, nbytes, 0, 1)
+
+
+def device_busy(fn):
+    """(device busy ms, kernel launches, copies and sets) over one call of
+    ``fn``, from ``torch.profiler`` (its second trace: the first pays the
+    profiler's start-up); (None, None, None) where it saw no device time.
+    The busy time holds every device event; the launches count the
+    kernels alone, apart from the memcpy and memset events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None, None
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in events)
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3,
+            len(events) - copies, copies)
+
+
+def lm_requests(cfg, count, seed):
+    from repro_torch.serve.engine import Request
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, cfg.vocab_size, LM_PROMPT)], max_new=LM_MAX_NEW)
+        for i in range(count)]
+
+
+def lm_serve(dev, cfg, max_len=LM_MAX_LEN, prefill_len=LM_PREFILL_LEN):
+    """Phase 9a: ``cfg`` (llama3.2-3b at full width and depth on the card)
+    drawn from the seed on ``dev``, 8 requests served to completion by
+    ``ServeEngine(batch_slots=4)``, the teacher-forced decode held to the
+    prefill of the same tokens, and one prefill of ``prefill_len``."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import (forward_decode, forward_prefill,
+                                          init_caches, init_params)
+    from repro_torch.serve.engine import ServeEngine
+
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"9a {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, GQA "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB; "
+        f"param_count() {cfg.param_count()}, which leaves out the norms) "
+        f"drawn on the card in {init_s:.2f} s")
+
+    warm = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len,
+                       device=dev)
+    for r in lm_requests(cfg, LM_SLOTS, SEED + 1):
+        r.max_new = 2
+        warm.submit(r)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len,
+                      device=dev)
+    reqs = lm_requests(cfg, LM_REQUESTS, SEED)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    steps = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = sum(len(r.out) for r in reqs)
+    check(all(r.done and len(r.out) == LM_MAX_NEW for r in reqs),
+          "9a: a request did not finish with max_new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out),
+          "9a: a token outside the vocabulary")
+    terms, w_bytes, kv_bytes = lm_step_terms(cfg, params, LM_SLOTS, max_len)
+    step_ms = serve_s / steps * 1e3
+    res = dict(arch=cfg.name, requests=len(reqs), tokens=tokens,
+               steps=steps, serve_s=serve_s, step_ms=step_ms,
+               tokens_per_s=tokens / serve_s, peak_gib=peak,
+               held_gib=held, init_s=init_s,
+               bound_ms=terms.step_time_s * 1e3, bound_by=terms.dominant,
+               weight_bytes=w_bytes, kv_bytes=kv_bytes, launches=launches)
+    log(f"9a served {len(reqs)} requests ({LM_PROMPT}-token prompts, "
+        f"max_new {LM_MAX_NEW}) on {LM_SLOTS} slots, max_len {max_len}: "
+        f"{tokens} tokens in {steps} steps, {serve_s:.3f} s wall, "
+        f"{step_ms:.3f} ms a step, {tokens / serve_s:.1f} tokens/s; peak "
+        f"{peak:.3f} GiB ({held:.3f} GiB held before the parameters were "
+        f"drawn); "
+        f"kernel launches {json.dumps(launches)}")
+    log(f"9a step roofline (RooflineTerms, H100 data sheet): "
+        f"{terms.bytes_accessed} B ({w_bytes} B weights + {kv_bytes} B KV "
+        f"buffer) -> memory {terms.memory_s * 1e3:.4f} ms, {terms.flops:.4e} "
+        f"flops -> compute {terms.compute_s * 1e3:.4f} ms; bound "
+        f"{res['bound_ms']:.4f} ms ({terms.dominant}), measured step "
+        f"{step_ms:.3f} ms = {res['bound_ms'] / step_ms:.1%} of it")
+
+    # one steady step under the profiler: device busy share, launches
+    eng2 = ServeEngine(cfg, params, batch_slots=LM_SLOTS, max_len=max_len,
+                       device=dev)
+    for r in lm_requests(cfg, LM_SLOTS, SEED + 2):
+        eng2.submit(r)
+    for _ in range(LM_PROMPT + 2):
+        eng2.step()
+    busy = kernels = copies = None
+    if dev.type == "cuda":  # a CPU rehearsal has no device to trace
+        busy, kernels, copies = device_busy(eng2.step)
+    res.update(busy_ms=busy, kernels_per_step=kernels,
+               copies_per_step=copies,
+               busy_share=None if busy is None else busy / step_ms)
+    log("9a one decode step under torch.profiler: device busy "
+        + (f"{busy:.3f} ms, {busy / step_ms:.1%} of the served run's "
+           f"{step_ms:.3f} ms a step; {kernels} kernel launches and "
+           f"{copies} memcpy/memset events"
+           if busy is not None else "not measured (no device time in the "
+           "trace)"))
+    del eng2
+
+    # teacher-forced decode of request 0's tokens against their prefill
+    seq = reqs[0].prompt + reqs[0].out
+    toks = torch.tensor([seq], device=dev)
+    caches = init_caches(cfg, 1, 64, dev)
+    for t in range(len(seq)):
+        logits, caches = forward_decode(cfg, params, caches, toks[:, t],
+                                        torch.tensor([t], device=dev))
+    want = forward_prefill(cfg, params, {"tokens": toks})
+    got, want = logits.float().cpu().numpy(), want.float().cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    top5 = np.argsort(-want[0])[:5]
+    log(f"9a teacher-forced decode of {len(seq)} tokens against "
+        f"forward_prefill: max|diff| {np.abs(got - want).max():.4f} = "
+        f"{rel:.3e} of max|logit| {np.abs(want).max():.3f} (bound "
+        f"{LM_DECODE_REL}); argmax {int(got[0].argmax())} / "
+        f"{int(want[0].argmax())}")
+    check(rel <= LM_DECODE_REL, f"9a: decode and prefill logits differ by "
+          f"{rel:.3e} of the largest, bound {LM_DECODE_REL}")
+    check(int(got[0].argmax()) in top5, "9a: the decode's argmax is not "
+          "among the prefill's top 5")
+    res["decode_vs_prefill_rel"] = rel
+    del caches
+
+    # one prefill of prefill_len tokens at B = 1
+    rng = np.random.default_rng(SEED)
+    long = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, prefill_len))).to(dev)
+    forward_prefill(cfg, params, {"tokens": long[:, :64]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = forward_prefill(cfg, params, {"tokens": long})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(tuple(out.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(out.float()).all()),
+          "9a: prefill logits not finite or of the wrong shape")
+    pterms = lm_prefill_terms(cfg, params, prefill_len)
+    res.update(prefill_len=prefill_len, prefill_ms=prefill_s * 1e3,
+               prefill_bound_ms=pterms.step_time_s * 1e3,
+               prefill_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"9a forward_prefill B=1 S={prefill_len}: {prefill_s * 1e3:.3f} ms "
+        f"({prefill_len / prefill_s:.0f} tokens/s), bound "
+        f"{res['prefill_bound_ms']:.4f} ms ({pterms.dominant}: "
+        f"{pterms.flops:.4e} flops), peak {res['prefill_peak_gib']:.3f} GiB")
+    return res
+
+
+def lm_smoke_on(dev, cfg, params, batch, enc):
+    """Prefill logits and LM_SMOKE_STEPS decode steps' logits, as numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import (forward_decode, forward_prefill,
+                                          init_caches)
+    B = LM_SMOKE_B
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    outs = [forward_prefill(cfg, params, tb)]
+    caches = init_caches(cfg, B, LM_SMOKE_T, dev)
+    if cfg.family == "audio":
+        caches["enc"] = torch.from_numpy(enc).to(dev)
+    for t in range(LM_SMOKE_STEPS):
+        pos = torch.tensor([t, t + 2], device=dev)
+        lg, caches = forward_decode(cfg, params, caches,
+                                    tb["tokens"][:, t].long(), pos)
+        outs.append(lg)
+    return [o.float().cpu().numpy() for o in outs]
+
+
+LM_VARIANTS = (("llama3.2-3b", dict(kv_cache_dtype="int8")),
+               ("llama3.2-3b", dict(attn_impl="blockwise", attn_block=3)),
+               ("deepseek-v2-236b", dict(mla_absorb=True)))
+
+
+def lm_smoke_archs(dev):
+    """Phase 9b: every arch's smoke config in float32, and the int8 KV,
+    blockwise and absorbed-MLA variants, on the card against the port's
+    own CPU run on the same parameters."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ARCH_IDS, get_arch
+    from repro_torch.models.model import init_params
+
+    worst = 0.0
+    cases = [(a, {}) for a in ARCH_IDS] + list(LM_VARIANTS)
+    for arch, over in cases:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32",
+                                  **over)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        rng = np.random.default_rng(SEED)
+        B, S = LM_SMOKE_B, LM_SMOKE_S
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+        enc = rng.standard_normal((B, cfg.frontend_len, cfg.d_model)
+                                  ).astype(np.float32)
+        if cfg.frontend == "patch":
+            batch["patch_embeds"] = rng.standard_normal(
+                (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+        if cfg.frontend == "audio":
+            batch["frames"] = enc[:, ::-1].copy()
+        host = lm_smoke_on(torch.device("cpu"), cfg, params, batch, enc)
+        card = lm_smoke_on(dev, cfg, params.to(dev), batch, enc)
+        errs = []
+        for what, h, c in zip(["prefill"] + [f"decode {t}" for t in
+                                             range(LM_SMOKE_STEPS)],
+                              host, card):
+            check(h.shape == c.shape and np.isfinite(c).all(),
+                  f"9b {arch} {over}: {what} logits not finite or of "
+                  "another shape")
+            rel = float(np.abs(c - h).max() / max(np.abs(h).max(), 1e-6))
+            check(rel <= LM_CARD_REL, f"9b {arch} {over} {what}: the card "
+                  f"differs from the CPU by {rel:.3e}, bound {LM_CARD_REL}")
+            errs.append(rel)
+        worst = max(worst, max(errs))
+        log(f"9b {arch} {json.dumps(over) if over else ''}: prefill + "
+            f"{LM_SMOKE_STEPS} decode steps, the card against the CPU, "
+            f"max rel diff {max(errs):.3e}")
+    return worst
+
+
+def lm_cut_deepseek(dev, cfg):
+    """Phase 9c: ``cfg`` (deepseek-v2-236b at full width, depth cut to 2:
+    one dense layer and one MoE layer with MLA): one prefill and 4 decode
+    steps on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import (forward_decode, forward_prefill,
+                                          init_caches, init_params,
+                                          layer_pattern)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))).to(dev)
+    forward_prefill(cfg, params, {"tokens": toks[:, :8]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = forward_prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ok = bool(torch.isfinite(logits.float()).all())
+    caches = init_caches(cfg, 2, 64, dev)
+    t0 = time.perf_counter()
+    for t in range(4):
+        lg, caches = forward_decode(cfg, params, caches, toks[:, t],
+                                    torch.full((2,), t, device=dev))
+        ok = ok and bool(torch.isfinite(lg.float()).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(ok and tuple(lg.shape) == (2, cfg.vocab_size),
+          "9c: logits not finite or of the wrong shape")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"9c {cfg.name} cut to {cfg.num_layers} layers "
+        f"({'/'.join(layer_pattern(cfg))}; widths kept: d {cfg.d_model}, "
+        f"{cfg.num_heads} heads, kv_lora {cfg.kv_lora_rank}, "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} + "
+        f"{cfg.num_shared_experts} shared, vocab {cfg.vocab_size}): "
+        f"{n_params} parameters drawn in {init_s:.2f} s; prefill B=2 S=64 "
+        f"{prefill_s * 1e3:.3f} ms; 4 decode steps B=2 "
+        f"{decode_s * 1e3 / 4:.3f} ms each (the first included); peak "
+        f"{peak:.3f} GiB; logits finite")
+    return dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+                prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3 / 4,
+                peak_gib=peak)
+
+
+def lm_phase(dev, serve_cfg=None, cut_cfg=None, **serve_kw):
+    """Phase 9: 9a, 9b and 9c; the configs default to the full ones."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    serve_cfg = serve_cfg or get_arch(LM_ARCH).config
+    cut_cfg = cut_cfg or dataclasses.replace(get_arch(CUT_ARCH).config,
+                                             num_layers=CUT_LAYERS)
+    served = lm_serve(dev, serve_cfg, **serve_kw)
+    torch.cuda.empty_cache()
+    served["card_vs_cpu_max_rel"] = lm_smoke_archs(dev)
+    served["cut"] = lm_cut_deepseek(dev, cut_cfg)
+    torch.cuda.empty_cache()
+    log("phase 9 summary: " + json.dumps(served))
+    return served
+
+
 def main() -> int:
     try:
         import torch
@@ -1748,8 +2144,6 @@ def main() -> int:
     from repro_torch.kernels.relabel.relabel import relabel
     from repro_torch.kernels.segmin.segmin import (owner_scatter_min,
                                                    segmin_candidates)
-
-    counted = (owner_scatter_min, relabel, segmin_candidates)
 
     start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1944,7 +2338,7 @@ def main() -> int:
         sel = selection_rounds(dev, gu, gv, gw, gn)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {fn.__name__: fn.launches for fn in counted}
+        counts = kernel_counts()
         log(f"selection gnm n={gn} m={len(gu)} ({2 * len(gu)} directed, "
             f"generated in {gen_s:.1f} s): {sel['rounds']} rounds in "
             f"{secs:.3f} s wall (with the plain comparisons); K2 and K3 "
@@ -2065,6 +2459,12 @@ def main() -> int:
                     ms=k3_main["ms"], plain_ms=k3_main["plain_ms"],
                     bound_ms=k3_main["bound_ms"], bound_by="bytes",
                     library_ms=k3_main["library_ms"])]
+    # phase 9: the LM serving path, counted from 0 inside lm_serve
+    t0 = time.perf_counter()
+    lm = lm_phase(dev)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
+    for entry in kernels:
+        entry["lm_path"] = lm["launches"][entry["name"]]
     log(f"total: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,1 +1,2 @@
-"""Serving: the MSF gateway (``msf_gateway.py``)."""
+"""Serving: the MSF gateway (``msf_gateway.py``) and the LM decode engine
+(``engine.py``)."""

@@ -35,6 +35,9 @@ from repro_torch.core.plan import RoundPlan
 from repro_torch.data import generators
 from tests.test_torch_sharded import run_reference
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N, SEED = 512, 7
 STATS = ("calls", "items", "bytes", "rounds", "hits", "misses", "pushed",

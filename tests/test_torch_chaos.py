@@ -18,6 +18,9 @@ from repro_torch.comm import faults
 from repro_torch.core import distributed_sharded as ds
 from repro_torch.launch import chaos
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 N, SEED = 128, 0
 CPU = "cpu"
 

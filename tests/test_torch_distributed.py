@@ -27,6 +27,9 @@ from repro_torch.core.mst import minimum_spanning_forest
 from tests.helpers.graph_families import FAMILIES
 from tests.test_torch_sharded import run_reference
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 P = 8
 N = 256

@@ -34,6 +34,9 @@ from repro_torch.data import generators
 from repro_torch.launch.chaos import FAULT_MATRIX, GRID_FAULT_MATRIX
 from tests.test_torch_sharded import run_reference
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N, SEED = 256, 7
 STATS = ("calls", "items", "bytes", "rounds", "hits", "misses", "pushed",

@@ -17,6 +17,9 @@ from repro_torch.core.graph import from_numpy
 from repro_torch.core.mst import minimum_spanning_forest
 from tests.helpers.graph_families import FAMILIES
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 SEEDS = [0, 1, 2]
 # low enough that the recursion splits every family before its base case

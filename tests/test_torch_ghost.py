@@ -36,6 +36,9 @@ from tests.helpers.graph_families import FAMILIES
 from tests.test_torch_sharded import run_reference
 from tests.test_torch_sharded_levers import _assert_same, _host_state
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 OFF = dict(local_preprocessing=False, coalesce=False, src_only=False,
            adaptive_doubling=False, shrink_capacities=False,

@@ -24,6 +24,9 @@ from tests.test_torch_ghost import (ALGOS, STATS, _assert_same,
                                     _check_exact, _solve, reference,
                                     run_key)
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 LADDER_FAMILIES = ("random", "dup_weights", "disconnected")
 RGG = "rgg2d:512"
 ONE_AXIS_AND_GRID = (

@@ -15,6 +15,9 @@ import torch
 from repro_torch.comm.grid_alltoall import all_to_all_nd
 from repro_torch.device import resolve_device
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")

@@ -39,6 +39,9 @@ from repro_torch.kernels.segmin.segmin import (ListUse, list_use,
                                                owner_scatter_min_list_use)
 from tests.helpers.hypothesis_compat import given, settings, st
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 ALIGNED = [1 << 20] * 6
 NO_KEY = np.iinfo(np.int64).max  # the kernels' ~0 in pack_keys' order
 WARPS = K3_THREADS // 32

@@ -37,6 +37,9 @@ from repro_torch.kernels.segmin.segmin import segmin_candidates
 from tests.helpers.graph_families import FAMILIES
 from tests.test_kernels import _sorted_run_problem
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))  # a writable copy

@@ -24,6 +24,9 @@ from repro_torch.comm.exchange import (ExchangeStats, _axis_masks_to_copies,
 from repro_torch.comm.grid_alltoall import all_to_all_axis
 from tests.test_torch_sharded import run_reference
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 SHARDS = P = 8
 STATS = ExchangeStats._fields
 # (name, kind, layout, items per shard, capacities, seed, bit 30 set)

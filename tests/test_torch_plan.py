@@ -45,6 +45,9 @@ from tests.test_torch_ghost import (STATS, _check_exact, make_graph,
                                     reference, run_key)
 from tests.test_torch_sharded_levers import _assert_same
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 INF = math.inf
 

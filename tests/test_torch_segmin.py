@@ -22,6 +22,9 @@ from repro_torch.kernels.segmin.ref import (EID_SENTINEL,
 from repro_torch.kernels.segmin.segmin import owner_scatter_min
 from tests.test_kernels_fuzz import BLOCKS, _random_candidates
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))

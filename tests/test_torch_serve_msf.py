@@ -39,6 +39,9 @@ from repro_torch.serve.msf_gateway import (AdmissionError, GatewayError,
                                            GatewayStats, MSFGateway,
                                            MSFRequest, validate_graph)
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = "cpu"
 P = 8
 N = 256

@@ -33,6 +33,9 @@ from tests.helpers import graph_families
 from tests.helpers.graph_families import FAMILIES
 from tests.helpers.subproc import run_multidevice
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 P = 8
 OFF = dict(local_preprocessing=False, coalesce=False, src_only=False,

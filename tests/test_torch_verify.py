@@ -26,6 +26,9 @@ from repro_torch.core.distributed import DistGraph
 from repro_torch.core.verify import VerifyFailure, VerifyReport, verify_forest
 from tests.test_torch_sharded import run_reference
 
+# small tensors beside other busy workers: more threads only spin
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N, EXTRA, SEED = 512, 13, 7
 FORESTS = ("correct", "dropped_edge", "not_fixpoint", "out_of_range",
