@@ -141,7 +141,34 @@ Phases, each fatal on failure (exit 1):
          port's own CPU run on the same parameters (1e-4 relative);
      9c. deepseek-v2-236b at full width, depth cut from 60 to 2 layers
          (1 dense, 1 MoE with MLA): one prefill (B = 2, S = 64) and 4
-         decode steps, finite logits.
+         decode steps, finite logits;
+  10. LM training (plain PyTorch and autograd: no kernel of its own, so
+      every kernel's count over it is 0, reported as ``lm_train_path``):
+     10a. llama3.2-3b at full width and depth (bf16) trained by
+          ``make_train_step`` with ``TrainConfig()``'s AdamW and per-layer
+          remat ``"none"`` on the launcher's synthetic stream, one
+          sequence of the reference's train_4k shape (B = 1, S = 4096): 2
+          warm-up steps, 10 timed (ms a step, tokens/s, the share of the
+          989 TFLOP/s bf16 peak from ``launch/roofline.py: model_flops``,
+          peak memory, the losses, all finite, and a parameter changed);
+          then one step under remat ``"dots"`` and one with 2
+          microbatches at B = 2;
+     10b. every arch's smoke config in float32 on the card against the
+          CPU on the same parameters and batch: ``forward_train``'s loss
+          and every gradient, then the parameters, ``mu`` and ``nu`` after
+          one train step (1e-4 of each leaf's largest CPU value);
+     10c. deepseek-v2-236b cut to 2 layers as in 9c (bf16):
+          ``forward_train`` and its backward pass with
+          ``moe_impl="dispatch"`` under a (2, 4) data x model and a
+          (2, 2, 2) data x em x en (grid) ``MeshContext`` against
+          ``moe_local``, capacity factor 32 (no copy dropped), loss and
+          every gradient within 2e-2 of its leaf's largest (about three
+          bf16 ulps); one layer's ``moe_apply`` timed both ways;
+     10d. llama3.2's smoke config (bf16): 5 steps with checkpoints, the
+          checkpoint restored bit for bit (every sha1 checked), resumed
+          to step 10; then ``python -m repro_torch.launch.train --arch
+          llama3.2-3b --smoke --steps 8`` on the card, whose last line
+          must parse.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi`` reports them, the one before that a JSON object with one
@@ -150,6 +177,7 @@ Needs one CUDA card; with none it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -2118,6 +2146,452 @@ def lm_phase(dev, serve_cfg=None, cut_cfg=None, **serve_kw):
     return served
 
 
+# ---------------------------------------------------------------------------
+# phase 10: LM training (no kernel of its own: plain PyTorch and autograd)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 1, 4096   # the reference's train_4k shape, one sequence
+TRAIN_WARM, TRAIN_STEPS = 2, 10
+BF16_PEAK = 989e12           # H100 SXM dense bf16 (NVIDIA data sheet)
+TRAIN_CARD_REL = 1e-4        # float32 smoke configs, the card against the CPU
+# a leaf's scale for that bound is at least this share of its tree's
+# largest value: llama4's top-1 router gets a zero gradient by
+# construction (its one gate is normalised to 1), so both devices hold
+# rounding noise there (2e-12 against a largest gradient of 0.2)
+NOISE_FLOOR = 1e-6
+# the dispatch against moe_local in bf16: the same products at other
+# shapes, rounded at other points through two layers' backward, and every
+# gradient stored in bf16, whose ulp is 2^-8 to 2^-7 of a value: about
+# three ulps of a leaf's largest gradient (the card gave 1.00e-2 on the
+# embedding's, one to two ulps; a misrouted copy moves a gradient by O(1))
+DISPATCH_REL = 2e-2
+CUT_B, CUT_S, CUT_CF = 2, 64, 32.0   # 16 tokens a shard: no copy dropped
+DISPATCH_MESHES = (((2, 4), ("data", "model"), ("data",), ("model",),
+                    "direct"),
+                   ((2, 2, 2), ("data", "em", "en"), ("data",),
+                    ("em", "en"), "grid"))
+SMOKE_CKPT_STEPS, SMOKE_RESUME_STEPS, LAUNCHER_STEPS = 5, 10, 8
+
+
+def train_stream(cfg, B, S, seed=SEED):
+    """The launcher's synthetic stream (token t+1 = (5 t + 7) mod V from
+    random first tokens), as CPU tensors, with zero frontend stubs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    while True:
+        seq = [rng.integers(0, cfg.vocab_size, (B, 1))]
+        for _ in range(S):
+            seq.append((seq[-1] * 5 + 7) % cfg.vocab_size)
+        arr = np.concatenate(seq, axis=1)
+        batch = {"tokens": torch.from_numpy(arr[:, :S]),
+                 "labels": torch.from_numpy(arr[:, 1:])}
+        if cfg.frontend in ("patch", "audio"):
+            key = "patch_embeds" if cfg.frontend == "patch" else "frames"
+            batch[key] = torch.zeros((B, cfg.frontend_len, cfg.d_model),
+                                     dtype=torch.bfloat16)
+        yield batch
+
+
+def on(batch, dev):
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def timed_steps(dev, step, params, state, stream, count):
+    """``count`` train steps, host clock ending in a synchronize; the
+    losses read after the last."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(count):
+        params, state, m = step(params, state, on(next(stream), dev))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return params, state, secs, [float(x) for x in losses]
+
+
+def lm_train_full(dev, cfg, S=TRAIN_S):
+    """Phase 10a: ``cfg`` (llama3.2-3b at full width and depth, bf16)
+    trained by ``make_train_step`` with ``TrainConfig()``'s AdamW on one
+    sequence of ``S`` tokens: 2 warm-up steps, 10 timed; then one step
+    under ``remat_policy="dots"`` and one with 2 microbatches at B = 2."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    state = init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    watch = [params["final_norm"], params["blocks"][0]["attn"]["wq"]]
+    before = [w.detach().clone() for w in watch]
+    stream = train_stream(cfg, TRAIN_B, S)
+    step = make_train_step(cfg, TrainConfig())
+    params, state, warm_s, warm_losses = timed_steps(
+        dev, step, params, state, stream, TRAIN_WARM)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, secs, losses = timed_steps(dev, step, params, state,
+                                              stream, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in warm_losses + losses),
+          f"10a: a loss is not finite: {warm_losses + losses}")
+    check(any(not torch.equal(w, b) for w, b in zip(watch, before)),
+          "10a: no watched parameter changed")
+    step_ms = secs / TRAIN_STEPS * 1e3
+    tokens = TRAIN_B * S
+    flops = model_flops(cfg, {"kind": "train", "seq": S, "batch": TRAIN_B},
+                        backward=True)
+    res = dict(arch=cfg.name, params=n_params, batch=TRAIN_B, seq=S,
+               init_s=init_s, warm_ms=warm_s / TRAIN_WARM * 1e3,
+               step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               model_flops=flops,
+               bf16_peak_share=flops / (step_ms / 1e3) / BF16_PEAK,
+               peak_gib=peak, losses=warm_losses + losses,
+               state_gb=sum(p.numel() * (p.element_size() + 8)
+                            for p in params.parameters()) / 1e9)
+    log(f"10a {cfg.name} trained at full width and depth ({cfg.num_layers} "
+        f"layers, d {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{n_params} parameters; parameters + AdamW moments "
+        f"{res['state_gb']:.2f} GB) on B={TRAIN_B} S={S}, remat "
+        f"'{cfg.remat_policy}': {TRAIN_WARM} warm-up steps "
+        f"{res['warm_ms']:.1f} ms each, then {TRAIN_STEPS} steps "
+        f"{step_ms:.3f} ms each ({res['tokens_per_s']:.1f} tokens/s); "
+        f"model_flops {flops:.4e} -> {res['bf16_peak_share']:.2%} of the "
+        f"989 TFLOP/s bf16 peak; peak {peak:.3f} GiB; losses "
+        f"{[round(x, 4) for x in res['losses']]}")
+
+    # the step split: forward + backward, then the AdamW update; and one
+    # step under the profiler (device busy share, kernel launches)
+    from repro_torch.train.optimizer import apply_update
+    batch = on(next(stream), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = _loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    it = iter(grads)
+    grads = params.map(lambda p: next(it))
+    params, state = apply_update(TrainConfig().opt, params, grads, state)
+    torch.cuda.synchronize()
+    res.update(fwd_bwd_ms=(t1 - t0) * 1e3,
+               adamw_ms=(time.perf_counter() - t1) * 1e3)
+    del grads
+    busy = kernels = copies = None
+    if dev.type == "cuda":  # a CPU rehearsal has no device to trace
+        holder = {}
+
+        def one_step():
+            holder["out"] = step(params, state, on(next(stream), dev))
+        busy, kernels, copies = device_busy(one_step)
+        params, state = holder.pop("out")[:2]
+    res.update(busy_ms=busy, kernels_per_step=kernels,
+               copies_per_step=copies)
+    log(f"10a step split: forward_train + backward {res['fwd_bwd_ms']:.1f} "
+        f"ms, AdamW update {res['adamw_ms']:.1f} ms; one step under "
+        f"torch.profiler: "
+        + (f"device busy {busy:.1f} ms, {kernels} kernel launches, "
+           f"{copies} memcpy/memset events" if busy is not None else
+           "not measured (no device time in the trace)"))
+
+    # one step under remat "dots", one with 2 microbatches at B = 2
+    for what, c, tc, B in (
+            ("remat 'dots'", dataclasses.replace(cfg, remat_policy="dots"),
+             TrainConfig(), TRAIN_B),
+            ("2 microbatches", cfg, TrainConfig(microbatches=2), 2)):
+        torch.cuda.reset_peak_memory_stats()
+        params, state, secs, ls = timed_steps(
+            dev, make_train_step(c, tc), params, state,
+            train_stream(cfg, B, S, SEED + B), 1)
+        check(math.isfinite(ls[0]), f"10a {what}: the loss is not finite")
+        res[what] = dict(batch=B, step_ms=secs * 1e3, loss=ls[0],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(f"10a one step, {what}, B={B} S={S}: {secs * 1e3:.3f} ms, "
+            f"loss {ls[0]:.4f}, peak {res[what]['peak_gib']:.3f} GiB")
+    return res
+
+
+def _loss_and_grads(cfg, params, batch, mesh_ctx=None):
+    import torch
+    from repro_torch.models.model import forward_train
+    params.requires_grad_(True)
+    loss = forward_train(cfg, params, batch, mesh_ctx)
+    # command-r's parallel block never reads ln2: a zero gradient
+    grads = torch.autograd.grad(loss, list(params.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return float(loss.detach()), grads
+
+
+def _leaf_rel(got, want):
+    """max |got - want| over max |want| of one leaf, on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                1e-6))
+
+
+def _tree_rel(got, want):
+    """The largest leaf error of two trees (tensor lists), each against
+    its leaf's largest ``want`` magnitude floored at NOISE_FLOOR of the
+    tree's largest: a leaf whose gradient is zero by construction holds
+    only rounding noise."""
+    got = [g.detach().float().cpu() for g in got]
+    want = [w.detach().float().cpu() for w in want]
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max())
+               / max(float(w.abs().max()), NOISE_FLOOR * top, 1e-30)
+               for g, w in zip(got, want))
+
+
+def _step_params_err(got, want, host_mu, opt):
+    """The parameters after one AdamW step from zero moments: within
+    1e-4 * lr where the (clipped) CPU gradient, mu / (1 - b1), is at
+    least 1e-6, and within 2 * lr elsewhere, where the step takes the
+    sign of a vanishing gradient (the reference test's rule).  Returns
+    the largest |diff| / lr where the gradient is at least 1e-6."""
+    import torch
+    from repro_torch.train.optimizer import schedule
+    lr = float(schedule(opt, torch.tensor(1)))
+    worst = 0.0
+    for g, w, mu in zip(got, want, host_mu):
+        diff = (g.detach().float().cpu() - w.detach().float()).abs()
+        big = (mu.detach() / (1 - opt.b1)).abs() >= 1e-6
+        check(bool((diff[~big] <= 2 * lr).all()),
+              "10b: a parameter moved by more than 2 lr from the CPU's")
+        if bool(big.any()):
+            worst = max(worst, float(diff[big].max()) / lr)
+    return worst
+
+
+def lm_train_smoke(dev):
+    """Phase 10b: every arch's smoke config in float32, the same
+    parameters and batch on the CPU and the card: ``forward_train``'s loss
+    and every gradient, ``mu`` and ``nu`` after one ``make_train_step``
+    (1e-4 of each leaf's largest CPU value, ``_tree_rel``), and the
+    parameters after it (``_step_params_err``)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ARCH_IDS, get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    cpu = torch.device("cpu")
+    # the CPU train-step test's AdamW (lr 1e-2 at step 1): TrainConfig()'s
+    # first step moves a weight by lr = 3e-6, under 1e3 float32 ulps of a
+    # 0.05 weight, so a 1e-4 lr bound would measure the rounding of p
+    tc = TrainConfig(opt=AdamWConfig(lr=1e-2, warmup_steps=1,
+                                     total_steps=10))
+    worst = 0.0
+    for arch in ARCH_IDS:
+        cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
+        host = init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
+        card = host.map(lambda t: t.to(dev, copy=True))
+        batch = next(train_stream(cfg, LM_SMOKE_B, LM_SMOKE_S))
+        rng = np.random.default_rng(SEED)
+        for key in ("patch_embeds", "frames"):  # random, not the zero stubs
+            if key in batch:
+                batch[key] = torch.from_numpy(rng.standard_normal(
+                    tuple(batch[key].shape)).astype(np.float32))
+        h_loss, h_grads = _loss_and_grads(cfg, host, batch)
+        c_loss, c_grads = _loss_and_grads(cfg, card, on(batch, dev))
+        errs = {"loss": abs(c_loss - h_loss) / abs(h_loss),
+                "grads": _tree_rel(c_grads, h_grads)}
+        step = make_train_step(cfg, tc)
+        h_p, h_s, _ = step(host, init_state(host), batch)
+        c_p, c_s, _ = step(card, init_state(card), on(batch, dev))
+        check(int(c_s.step) == int(h_s.step) == 1, f"10b {arch}: step count")
+        for name in ("mu", "nu"):
+            errs[name] = _tree_rel(getattr(c_s, name).parameters(),
+                                   getattr(h_s, name).parameters())
+        worst_arch = max(errs.values())
+        check(worst_arch <= TRAIN_CARD_REL, f"10b {arch}: the card differs "
+              f"from the CPU by {errs}, bound {TRAIN_CARD_REL}")
+        errs["params / lr"] = _step_params_err(
+            list(c_p.parameters()), list(h_p.parameters()),
+            list(h_s.mu.parameters()), tc.opt)
+        check(errs["params / lr"] <= TRAIN_CARD_REL, f"10b {arch}: a "
+              f"parameter differs from the CPU's by {errs['params / lr']:.3e}"
+              f" lr, bound {TRAIN_CARD_REL} lr")
+        worst = max(worst, worst_arch)
+        log(f"10b {arch}: forward_train loss {c_loss:.6f} (CPU "
+            f"{h_loss:.6f}), {len(c_grads)} gradients, mu and nu after one "
+            f"train step, the card against the CPU: max rel diff "
+            f"{worst_arch:.3e} ({', '.join(f'{k} {v:.2e}' for k, v in errs.items())})")
+    return worst
+
+
+def lm_train_dispatch(dev, cfg):
+    """Phase 10c: ``cfg`` (deepseek-v2-236b at full width, cut to 2
+    layers) in bf16: ``forward_train`` and its backward pass with
+    ``moe_impl="dispatch"`` under a (2, 4) and a (2, 2, 2) grid
+    ``MeshContext`` against ``moe_local`` (no mesh), capacity factor
+    large enough that no copy is dropped; and one MoE layer's
+    ``moe_apply`` timed both ways."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import MeshContext, init_params
+    from repro_torch.models.moe import moe_apply
+
+    cfg = dataclasses.replace(cfg, moe_impl="dispatch",
+                              capacity_factor=CUT_CF)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    batch = on(next(train_stream(cfg, CUT_B, CUT_S)), dev)
+    t0 = time.perf_counter()
+    want_loss, want = _loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    local_s = time.perf_counter() - t0
+    names = [n for n, _ in params.named_parameters()]
+    res = dict(arch=cfg.name, layers=cfg.num_layers, loss=want_loss,
+               local_fwd_bwd_ms=local_s * 1e3, meshes={})
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (CUT_B, CUT_S, cfg.d_model))).to(dev, cfg.torch_dtype)
+    lp = params["moe_blocks"][0]["moe"]
+    with torch.no_grad():
+        local_ms = time_ms(lambda: moe_apply(cfg, lp, x), 5)
+    for shape, axes, dp, ep, sched in DISPATCH_MESHES:
+        c = dataclasses.replace(cfg, moe_dispatch=sched)
+        ctx = MeshContext(make_mesh(shape, axes), dp, ep)
+        t0 = time.perf_counter()
+        loss, grads = _loss_and_grads(c, params, batch, ctx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        leaf = sorted(((_leaf_rel(g, w), n) for g, w, n in
+                       zip(grads, want, names)), reverse=True)
+        rel = max(abs(loss - want_loss) / abs(want_loss), leaf[0][0])
+        del grads
+        with torch.no_grad():
+            ms = time_ms(lambda: moe_apply(c, lp, x, ctx), 5)
+        name = "x".join(map(str, shape)) + " " + "/".join(axes)
+        res["meshes"][name] = dict(schedule=sched, ep_size=ctx.ep_size,
+                                   loss=loss, max_rel=rel,
+                                   fwd_bwd_ms=secs * 1e3,
+                                   moe_apply_ms=ms)
+        log(f"10c {cfg.name} cut to {cfg.num_layers} layers, B={CUT_B} "
+            f"S={CUT_S}, capacity factor {CUT_CF}: forward_train + backward "
+            f"through moe_dispatch on {name} ({sched}, EP {ctx.ep_size}) "
+            f"{secs * 1e3:.1f} ms, loss {loss:.5f} against moe_local's "
+            f"{want_loss:.5f} ({local_s * 1e3:.1f} ms), max rel diff of the "
+            f"loss and every gradient {rel:.3e} (bound {DISPATCH_REL}; "
+            f"largest leaves {', '.join(f'{n} {r:.2e}' for r, n in leaf[:4])}); "
+            f"one layer's moe_apply {ms:.3f} ms against moe_local's "
+            f"{local_ms:.3f} ms")
+        check(rel <= DISPATCH_REL, f"10c {name} {sched}: the dispatch "
+              f"differs from moe_local by {rel:.3e}, bound {DISPATCH_REL}")
+    res.update(moe_local_ms=local_ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"10c peak {res['peak_gib']:.3f} GiB")
+    return res
+
+
+def lm_train_checkpoint(dev, cfg):
+    """Phase 10d: ``cfg`` (llama3.2's smoke config, bf16) trained 5 steps
+    with checkpoints, the checkpoint restored bit for bit with every sha1
+    checked, the run resumed to step 10; then the launcher in a
+    subprocess on the card."""
+    import math
+    import os
+    import re
+    import tempfile
+    import torch
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import TrainConfig, train
+
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainConfig(opt=AdamWConfig(lr=5e-3), ckpt_dir=d,
+                         ckpt_every=SMOKE_CKPT_STEPS, log_every=1)
+        first = train(cfg, tc, train_stream(cfg, 8, 32),
+                      SMOKE_CKPT_STEPS, log=lambda *_: None, device=dev)
+        like = {"params": first["params"], "opt": first["opt_state"]}
+        back = checkpoint.restore(d, SMOKE_CKPT_STEPS, like, verify=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            back["params"].parameters(), first["params"].parameters()))
+        for name in ("mu", "nu"):
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                getattr(back["opt"], name).parameters(),
+                getattr(first["opt_state"], name).parameters()))
+        check(same and int(back["opt"].step) == SMOKE_CKPT_STEPS,
+              "10d: the restored checkpoint differs from the trained state")
+        files = len(os.listdir(os.path.join(
+            d, f"step_{SMOKE_CKPT_STEPS:010d}"))) - 1
+        logs = []
+        second = train(cfg, tc, train_stream(cfg, 8, 32),
+                       SMOKE_RESUME_STEPS, log=logs.append, device=dev)
+        check(logs[0] == f"[train] resumed from step {SMOKE_CKPT_STEPS}"
+              and int(second["opt_state"].step) == SMOKE_RESUME_STEPS
+              and all(math.isfinite(x) for x in second["losses"]),
+              f"10d: the resumed run did not reach step "
+              f"{SMOKE_RESUME_STEPS}: {logs[:2]}")
+        check(checkpoint.latest_step(d) == SMOKE_RESUME_STEPS,
+              "10d: no checkpoint at the resumed run's end")
+    log(f"10d {cfg.name} ({cfg.dtype}): {SMOKE_CKPT_STEPS} steps, the "
+        f"checkpoint ({files} leaves) restored bit for bit with every sha1 "
+        f"checked, resumed to step {SMOKE_RESUME_STEPS} (losses "
+        f"{[round(x, 4) for x in first['losses'] + second['losses']]})")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3.2-3b", "--smoke", "--steps", str(LAUNCHER_STEPS)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    m = re.fullmatch(r"done: final loss (\S+)", lines[-1] if lines else "")
+    check(proc.returncode == 0 and m is not None
+          and math.isfinite(float(m.group(1))),
+          f"10d: the launcher failed (rc {proc.returncode}): "
+          f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    log(f"10d launcher python -m repro_torch.launch.train --arch "
+        f"llama3.2-3b --smoke --steps {LAUNCHER_STEPS} on the card: "
+        f"{secs:.1f} s, last line {lines[-1]!r}")
+    return dict(ckpt_leaves=files, final_loss=float(m.group(1)),
+                launcher_s=secs)
+
+
+def lm_train_phase(dev, full_cfg=None, cut_cfg=None, smoke_cfg=None,
+                   **full_kw):
+    """Phase 10: 10a-10d, the kernel counts set to 0 before and read
+    after; the configs default to the full ones."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    full_cfg = full_cfg or get_arch(LM_ARCH).config
+    cut_cfg = cut_cfg or dataclasses.replace(get_arch(CUT_ARCH).config,
+                                             num_layers=CUT_LAYERS)
+    smoke_cfg = smoke_cfg or get_arch(LM_ARCH).smoke
+
+    def release():
+        # the serving engines of phase 9 hold their parameters in
+        # reference cycles: collect them before a peak is read
+        gc.collect()
+        torch.cuda.empty_cache()
+    release()
+    reset_counts()
+    res = dict(full=lm_train_full(dev, full_cfg, **full_kw))
+    release()
+    res["card_vs_cpu_max_rel"] = lm_train_smoke(dev)
+    res["dispatch"] = lm_train_dispatch(dev, cut_cfg)
+    release()
+    res["checkpoint"] = lm_train_checkpoint(dev, smoke_cfg)
+    res["launches"] = kernel_counts()
+    log("phase 10 summary: " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2463,8 +2937,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lm = lm_phase(dev)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s wall")
+    # phase 10: LM training, counted from 0 inside lm_train_phase
+    t0 = time.perf_counter()
+    trained = lm_train_phase(dev)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
     for entry in kernels:
         entry["lm_path"] = lm["launches"][entry["name"]]
+        entry["lm_train_path"] = trained["launches"][entry["name"]]
     log(f"total: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

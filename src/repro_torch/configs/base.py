@@ -4,11 +4,13 @@ One config file per assigned architecture lives next to this module; each
 exposes ``CONFIG`` (the exact published dims) and ``SMOKE`` (a reduced
 same-family variant for CPU tests) and registers itself.  The port's own
 copy of ``repro.configs``: the same dims, value for value, with
-``torch_dtype`` in place of ``jdtype``.  The reference's fields that
-steer only its sharded or compiled programs (``moe_impl``,
-``moe_dispatch``, ``scan_unroll``, ``remat_policy``, ``cache_shard``,
-``shard_logits``) are left out: no config sets them, and the port's
-serving path has nothing for them to steer (ROADMAP item 13b).
+``torch_dtype`` in place of ``jdtype``.  ``moe_impl`` and
+``moe_dispatch`` (the expert-parallel MoE path) and ``remat_policy`` (the
+training forward's per-layer recomputation) are kept with the
+reference's defaults.  ``scan_unroll``, ``cache_shard`` and
+``shard_logits`` steer only the reference's dry-run programs, compiled
+for the production mesh; they wait for the port's dry-run (ROADMAP item
+13c), and no config sets them.
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ class ModelConfig:
     moe_d_ff: int = 0
     first_dense_layers: int = 0       # leading dense layers in MoE stacks
     moe_every: int = 1                # llama4: MoE every 2nd layer
+    moe_impl: str = "gshard"          # gshard | dispatch (paper routed a2a)
+    moe_dispatch: str = "direct"      # direct | grid (Section VI-A schedule)
     capacity_factor: float = 1.25
     # SSM (mamba2 / zamba2)
     ssm_state: int = 0
@@ -63,6 +67,8 @@ class ModelConfig:
     attn_impl: str = "naive"          # naive | blockwise (flash-style
     # online softmax over KV chunks; §Perf optimization)
     attn_block: int = 512             # KV chunk for blockwise attention
+    remat_policy: str = "none"        # none | dots: what a layer's
+    # recomputation keeps in the training forward (models/model.py)
     kv_cache_dtype: str = "model"     # model | int8 (quantised KV cache)
     mla_absorb: bool = False          # MLA decode: absorb wkv_b into the
     # query/output (attention in latent space — no per-step re-expansion

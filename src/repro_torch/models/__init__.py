@@ -1,3 +1,3 @@
 """The LM scaffolding's models in plain PyTorch (the port of
-``repro.models``): layers, SSM, MoE, the six model families, and the
-conversion of reference trees."""
+``repro.models``): layers, SSM, MoE, the six model families, the
+partition rules, and the conversion of reference trees."""

@@ -1,5 +1,5 @@
-"""Model assembly: init / prefill / decode per family, the port of
-``repro.models.model``.
+"""Model assembly: init / train-forward / prefill / decode per family, the
+port of ``repro.models.model``.
 
 The parameters are one ``Params`` module tree with the reference's names.
 Where the reference stacks a layer group into ``[L, ...]`` leaves and
@@ -20,14 +20,26 @@ Families:
                      a stub: the encoder consumes precomputed frame
                      embeddings
 
-``forward_train`` and the remat policies are ROADMAP item 13b.
+``forward_train`` runs every layer under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), where the
+reference wraps every layer body in ``jax.checkpoint``: a layer's
+activations are recomputed in the backward pass, and with
+``cfg.remat_policy == "dots"`` the products without batch dims are kept
+(``_remat_policy``).  Remat changes memory, never numbers.  Prefill and
+decode run without autograd and without remat.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import dataclasses
+import functools
+import math
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -42,10 +54,25 @@ STACKED = ("blocks", "dense_blocks", "moe_blocks", "enc_blocks",
            "dec_blocks")
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """The mesh that ``moe_apply`` dispatches over: a ``launch/mesh.py:
+    Mesh`` description, its data-parallel axes and its expert axes."""
+    mesh: Any
+    dp_axes: Tuple[str, ...]
+    ep_axes: Tuple[str, ...]
+
+    @property
+    def ep_size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.ep_axes)
+
+
 class Params(nn.Module):
-    """A tree of frozen parameters addressed like the reference's dict:
-    ``p["attn"]["wq"]``.  A tensor leaf is an ``nn.Parameter`` (no grad),
-    a dict a ``Params``, a list (one tree a layer) an ``nn.ModuleList``."""
+    """A tree of parameters addressed like the reference's dict:
+    ``p["attn"]["wq"]``.  A tensor leaf is an ``nn.Parameter``, a dict a
+    ``Params``, a list (one tree a layer) an ``nn.ModuleList``.  Leaves
+    are frozen as built; ``requires_grad_(True)`` makes them trainable
+    (the train step does so)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -63,6 +90,50 @@ class Params(nn.Module):
 
     def keys(self):
         return list(self._parameters) + list(self._modules)
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Params":
+        """A frozen tree of the same structure with ``fn`` of each leaf."""
+        return tree_map(fn, self)
+
+
+def stacked_shapes(params: Params) -> Dict[str, Tuple[int, ...]]:
+    """{reference leaf path ("blocks/attn/wq"): stacked shape} of a
+    ``Params`` tree: a per-layer group's leaves with their leading layer
+    dim, as the reference stacks them."""
+    out = {}
+
+    def walk(node, path, lead):
+        for k in node.keys():
+            child = node[k]
+            key = path + (k,)
+            if isinstance(child, nn.ModuleList):
+                walk(child[0], key, (len(child),))
+            elif isinstance(child, Params):
+                walk(child, key, lead)
+            else:
+                out["/".join(key)] = lead + tuple(child.shape)
+    walk(params, (), ())
+    return out
+
+
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of trees of one structure, leaf by leaf:
+    ``Params`` trees (the result a frozen ``Params``), or dicts and lists
+    of tensors (the result of the same kind)."""
+    out = _walk(fn, trees)
+    return Params(out) if isinstance(trees[0], Params) else out
+
+
+def _walk(fn, nodes):
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that would keep ``fn`` and what it
+    # holds (a step's gradients) alive until the garbage collector runs
+    node = nodes[0]
+    if isinstance(node, (Params, dict)):
+        return {k: _walk(fn, [n[k] for n in nodes]) for k in node.keys()}
+    if isinstance(node, (nn.ModuleList, list)):
+        return [_walk(fn, list(group)) for group in zip(*nodes)]
+    return fn(*nodes)
 
 
 # --------------------------------------------------------------------------
@@ -291,33 +362,73 @@ def _embed(cfg, params, tokens, extras):
     return x
 
 
+# the products that ``remat_policy="dots"`` keeps: the reference's
+# ``dots_with_no_batch_dims_saveable`` saves the dots without batch dims,
+# which reach the dispatcher as these (the projections, the FFNs, the
+# router); the batched ones (attention scores and values, the SSM's
+# einsums, the expert FFN's ``bmm``) are recomputed, as there
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat_policy(name: str):
+    """The checkpoint ``context_fn`` of a remat policy: ``"dots"`` keeps
+    the products without batch dims and recomputes the rest, ``"none"``
+    keeps only the layer's inputs."""
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _DOTS)
+    if name == "none":
+        return noop_context_fn
+    raise ValueError(f"remat_policy {name!r}")
+
+
+def _call(remat, fn, *args):
+    """One layer: ``fn(*args)``, under per-layer checkpointing when
+    ``remat`` is a policy's ``context_fn`` (training), directly when it
+    is None (prefill, decode)."""
+    if remat is None:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=remat)
+
+
 def _backbone(cfg, params, x, positions, mesh_ctx, caches=None,
-              cache_pos=None):
+              cache_pos=None, remat=None):
     """Hidden states; with ``caches``, each layer's cache is updated in
     place."""
     fam = cfg.family
     if fam in ("dense", "vlm"):
         for i, lp in enumerate(params["blocks"]):
             c = None if caches is None else _layer(caches, i)
-            x = _dense_block(cfg, lp, x, positions, c, cache_pos)
+            x = _call(remat, _dense_block, cfg, lp, x, positions, c,
+                      cache_pos)
     elif fam == "moe":
         x = _moe_backbone(cfg, params, x, positions, mesh_ctx, caches,
-                          cache_pos)
+                          cache_pos, remat)
     elif fam == "ssm":
         for i, lp in enumerate(params["blocks"]):
             st = None if caches is None else _layer(caches, i)
-            x, ns = _mamba_layer(cfg, lp, x, st)
+            x, ns = _call(remat, _mamba_layer, cfg, lp, x, st)
             if ns is not None:
                 st.h.copy_(ns.h)
                 st.conv.copy_(ns.conv)
     elif fam == "hybrid":
-        x = _zamba_backbone(cfg, params, x, positions, caches, cache_pos)
+        x = _zamba_backbone(cfg, params, x, positions, caches, cache_pos,
+                            remat)
     else:
         raise ValueError(fam)
     return x
 
 
-def _zamba_backbone(cfg, params, x, positions, caches, cache_pos):
+def _shared_attn_block(cfg, sp, x, positions, kv=None, cache_pos=None):
+    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+    att, _ = gqa_attention(cfg, sp["attn"], h, positions, cache=kv,
+                           cache_pos=cache_pos)
+    x = x + att
+    h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
+    return x + swiglu(h2, sp["mlp"]["wg"], sp["mlp"]["wu"], sp["mlp"]["wd"])
+
+
+def _zamba_backbone(cfg, params, x, positions, caches, cache_pos,
+                    remat=None):
     """Mamba2 stack with a shared attention block every k layers: the
     shared block's weights are reused at every site, each site has its
     own KV cache."""
@@ -326,24 +437,20 @@ def _zamba_backbone(cfg, params, x, positions, caches, cache_pos):
     site = 0
     for i, lp in enumerate(params["blocks"]):
         st = None if caches is None else _layer(caches["ssm"], i)
-        x, ns = _mamba_layer(cfg, lp, x, st)
+        x, ns = _call(remat, _mamba_layer, cfg, lp, x, st)
         if ns is not None:
             st.h.copy_(ns.h)
             st.conv.copy_(ns.conv)
         if every and (i % every == every - 1):
             kv = None if caches is None else _layer(caches["attn"], site)
-            h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-            att, _ = gqa_attention(cfg, sp["attn"], h, positions, cache=kv,
-                                   cache_pos=cache_pos)
-            x = x + att
-            h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
-            x = x + swiglu(h2, sp["mlp"]["wg"], sp["mlp"]["wu"],
-                           sp["mlp"]["wd"])
+            x = _call(remat, _shared_attn_block, cfg, sp, x, positions, kv,
+                      cache_pos)
             site += 1
     return x
 
 
-def _moe_backbone(cfg, params, x, positions, mesh_ctx, caches, cache_pos):
+def _moe_backbone(cfg, params, x, positions, mesh_ctx, caches, cache_pos,
+                  remat=None):
     """Dense/MoE interleave in layer order.  The reference scans runs of
     one kind (or (dense, moe) pairs for llama4's alternation); either
     way layer ``i`` of kind ``k`` is the next entry of ``k``'s stack."""
@@ -351,13 +458,13 @@ def _moe_backbone(cfg, params, x, positions, mesh_ctx, caches, cache_pos):
     for kind in layer_pattern(cfg):
         if kind == "dense":
             c = None if caches is None else _layer(caches["dense"], di)
-            x = _dense_block(cfg, params["dense_blocks"][di], x, positions,
-                             c, cache_pos)
+            x = _call(remat, _dense_block, cfg, params["dense_blocks"][di],
+                      x, positions, c, cache_pos)
             di += 1
         else:
             c = None if caches is None else _layer(caches["moe"], mi)
-            x = _moe_block(cfg, params["moe_blocks"][mi], x, positions,
-                           mesh_ctx, c, cache_pos)
+            x = _call(remat, _moe_block, cfg, params["moe_blocks"][mi], x,
+                      positions, mesh_ctx, c, cache_pos)
             mi += 1
     return x
 
@@ -381,7 +488,17 @@ def _whisper_decoder_layer(cfg, lp, h, dpos, enc, cache=None,
                         lp["mlp"]["wo"], lp["mlp"]["bo"])
 
 
-def _whisper_logits(cfg, params, batch):
+def _whisper_encoder_layer(cfg, lp, h, enc_pos):
+    hn = _ln(h, lp["ln1"], cfg.norm_eps)
+    att, _ = gqa_attention(cfg, lp["attn"], hn, enc_pos, causal=False,
+                           use_rope=False)
+    h = h + att
+    hn = _ln(h, lp["ln2"], cfg.norm_eps)
+    return h + gelu_mlp(hn, lp["mlp"]["wi"], lp["mlp"]["bi"],
+                        lp["mlp"]["wo"], lp["mlp"]["bo"])
+
+
+def _whisper_logits(cfg, params, batch, remat=None):
     frames = batch["frames"].to(cfg.torch_dtype)   # [B, Tf, D] stub
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -389,22 +506,44 @@ def _whisper_logits(cfg, params, batch):
     enc = frames + params["enc_pos"][None, :Tf].to(frames.dtype)
     enc_pos = torch.arange(Tf, dtype=torch.int32, device=enc.device)[None]
     for lp in params["enc_blocks"]:
-        hn = _ln(enc, lp["ln1"], cfg.norm_eps)
-        att, _ = gqa_attention(cfg, lp["attn"], hn, enc_pos, causal=False,
-                               use_rope=False)
-        enc = enc + att
-        hn = _ln(enc, lp["ln2"], cfg.norm_eps)
-        enc = enc + gelu_mlp(hn, lp["mlp"]["wi"], lp["mlp"]["bi"],
-                             lp["mlp"]["wo"], lp["mlp"]["bo"])
+        enc = _call(remat, _whisper_encoder_layer, cfg, lp, enc, enc_pos)
     enc = _ln(enc, params["enc_final_norm"], cfg.norm_eps)
 
     x = params["embed"][tokens].to(cfg.torch_dtype)
     x = x + params["dec_pos"][None, :S].to(x.dtype)
     dpos = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     for lp in params["dec_blocks"]:
-        x = _whisper_decoder_layer(cfg, lp, x, dpos, enc)
+        x = _call(remat, _whisper_decoder_layer, cfg, lp, x, dpos, enc)
     x = _ln(x, params["final_norm"], cfg.norm_eps)
     return proj(x, params["unembed"])
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: Dict,
+                  mesh_ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """Next-token cross-entropy loss (fp32 log-softmax), averaged over the
+    positions whose label is >= 0.  ``batch`` holds ``tokens`` and
+    ``labels`` [B, S], and ``patch_embeds`` (vlm) or ``frames`` (audio)
+    where the family reads them.  Every layer runs under per-layer
+    checkpointing with ``cfg.remat_policy``."""
+    tokens = batch["tokens"]
+    labels = batch["labels"]
+    B, S = tokens.shape
+    remat = _remat_policy(cfg.remat_policy)
+    if cfg.family == "audio":
+        logits = _whisper_logits(cfg, params, batch, remat)
+    else:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+        x = _embed(cfg, params, tokens, batch)
+        x = _backbone(cfg, params, x, positions, mesh_ctx, remat=remat)
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = proj(x, params["unembed"])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # a masked label gathers any entry (the reference's -1 wraps to the
+    # last); the mask zeroes it
+    ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # --------------------------------------------------------------------------

@@ -36,6 +36,9 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # every package of the port is scanned, the training slice among them
+    for sub in ("train", "models", "launch", "core", "comm", "serve"):
+        assert any(f.parent == PORT / sub for f in files), sub
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in FORBIDDEN]
@@ -82,6 +85,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
                           timeout=120, env=_env())
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
     assert "chaos: OK" not in proc.stdout
+    # training: the loop and its launcher
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.train.train_loop import TrainConfig, train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(get_arch("llama3.2-3b").smoke, TrainConfig(), iter(()), 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launcher.main(["--arch", "llama3.2-3b", "--smoke",
+                             "--steps", "1"])
 
 
 def _env():
