@@ -156,19 +156,41 @@ Phases, each fatal on failure (exit 1):
      10b. every arch's smoke config in float32 on the card against the
           CPU on the same parameters and batch: ``forward_train``'s loss
           and every gradient, then the parameters, ``mu`` and ``nu`` after
-          one train step (1e-4 of each leaf's largest CPU value);
+          one train step (1e-4 of each leaf's largest CPU value); every
+          router gradient looked at apart: a top-1 router's (llama4's,
+          zero by construction) must be noise below the 1e-6 floor on
+          both devices, any other within 1e-4 of its own largest;
      10c. deepseek-v2-236b cut to 2 layers as in 9c (bf16):
           ``forward_train`` and its backward pass with
           ``moe_impl="dispatch"`` under a (2, 4) data x model and a
           (2, 2, 2) data x em x en (grid) ``MeshContext`` against
           ``moe_local``, capacity factor 32 (no copy dropped), loss and
           every gradient within 2e-2 of its leaf's largest (about three
-          bf16 ulps); one layer's ``moe_apply`` timed both ways;
+          bf16 ulps); one layer's ``moe_apply`` timed both ways; then the
+          same in float32 within 1e-3 (rounding, not a misrouted copy);
      10d. llama3.2's smoke config (bf16): 5 steps with checkpoints, the
           checkpoint restored bit for bit (every sha1 checked), resumed
           to step 10; then ``python -m repro_torch.launch.train --arch
           llama3.2-3b --smoke --steps 8`` on the card, whose last line
-          must parse.
+          must parse;
+  11. the dry-run (meta tensors and counters: no kernel of its own, so
+      every kernel's count over it is 0, reported as ``dryrun_path``):
+     11a. ``python -m repro_torch.launch.dryrun`` for llama3.2-3b x 4
+          shapes x both production meshes and for the MST cell of both
+          engines (three processes at once): 0 failed, the skipped cells
+          those ``cell_supported`` refuses; each cell's dominant term,
+          compute_s, memory_s, collective_s and useful_ratio printed;
+     11b. the cells phases 9a and 10a ran (decode at 4 slots of 512, the
+          2048-token prefill, the train step at B = 1, S = 4096) costed
+          on the meta device: the flops equal ``FlopCounterMode``'s count
+          of the real step on the card (taken on phase 10a's parameters
+          and moments right after 10a), the argument bytes within 2% of
+          what the card allocated for the step, and 9a's and 10a's
+          measured times at or above the roofline step time;
+     11c. ``synthetic_plan`` replayed on phase 3's layout through
+          ``make_sharded_mst_step(plan=...)``: ``plan_exchange_bytes``
+          equals ``ExchangeStats.bytes`` with ``adaptive_doubling`` off,
+          and bounds it with it on.
 
 The line before the last is the card's name and power limit as
 ``nvidia-smi`` reports them, the one before that a JSON object with one
@@ -2165,6 +2187,10 @@ NOISE_FLOOR = 1e-6
 # three ulps of a leaf's largest gradient (the card gave 1.00e-2 on the
 # embedding's, one to two ulps; a misrouted copy moves a gradient by O(1))
 DISPATCH_REL = 2e-2
+# the same in float32 (ROADMAP queue 3's open check): with no misrouted
+# copy only the products' rounding at other shapes remains, about 1e-6
+# to 1e-4 of a leaf's largest; a misrouted copy moves a gradient by O(1)
+DISPATCH_REL_F32 = 1e-3
 CUT_B, CUT_S, CUT_CF = 2, 64, 32.0   # 16 tokens a shard: no copy dropped
 DISPATCH_MESHES = (((2, 4), ("data", "model"), ("data",), ("model",),
                     "direct"),
@@ -2225,6 +2251,7 @@ def lm_train_full(dev, cfg, S=TRAIN_S):
     from repro_torch.train.optimizer import init_state
     from repro_torch.train.train_loop import TrainConfig, make_train_step
 
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
@@ -2246,6 +2273,7 @@ def lm_train_full(dev, cfg, S=TRAIN_S):
           f"10a: a loss is not finite: {warm_losses + losses}")
     check(any(not torch.equal(w, b) for w, b in zip(watch, before)),
           "10a: no watched parameter changed")
+    del watch, before
     step_ms = secs / TRAIN_STEPS * 1e3
     tokens = TRAIN_B * S
     flops = model_flops(cfg, {"kind": "train", "seq": S, "batch": TRAIN_B},
@@ -2284,7 +2312,9 @@ def lm_train_full(dev, cfg, S=TRAIN_S):
     torch.cuda.synchronize()
     res.update(fwd_bwd_ms=(t1 - t0) * 1e3,
                adamw_ms=(time.perf_counter() - t1) * 1e3)
-    del grads
+    # the iterator too: having handed out every gradient it still holds
+    # their tuple (6.7 GiB), which the steps below and 11b would carry
+    del grads, it
     busy = kernels = copies = None
     if dev.type == "cuda":  # a CPU rehearsal has no device to trace
         holder = {}
@@ -2316,7 +2346,54 @@ def lm_train_full(dev, cfg, S=TRAIN_S):
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         log(f"10a one step, {what}, B={B} S={S}: {secs * 1e3:.3f} ms, "
             f"loss {ls[0]:.4f}, peak {res[what]['peak_gib']:.3f} GiB")
+    box = dict(params=params, state=state)
+    del params, state
+    res["card_counts"] = card_counts(dev, cfg, box, stream, held)
     return res
+
+
+def card_counts(dev, cfg, box, stream, held):
+    """Phase 11b's card side, on phase 10a's parameters and moments
+    (``cfg`` at full width, as phases 9a and 10a run it): the real train
+    step (B = 1, S = 4096), then, with the moments freed, one decode step
+    of 4 slots over length-512 caches and one prefill of 2048 tokens,
+    each counted by ``FlopCounterMode``, with
+    ``torch.cuda.memory_allocated()`` above ``held`` (what the card held
+    before phase 10a drew its parameters) taken right before it: the
+    bytes of the step's arguments.  ``box`` holds the only references to
+    the parameters and moments, so they are freed here.  The inputs are
+    int32, as the dry-run's."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models.model import (forward_decode, forward_prefill,
+                                          init_caches)
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    def counted(fn, *args):
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - held
+        with FlopCounterMode(display=False) as fc:
+            fn(*args)
+        torch.cuda.synchronize()
+        return dict(flops=fc.get_total_flops(), alloc=alloc)
+
+    i32 = lambda b: {k: v.to(dev, torch.int32) for k, v in b.items()}
+    params = box.pop("params")
+    out = dict(train=counted(make_train_step(cfg, TrainConfig()), params,
+                             box.pop("state"), i32(next(stream))))
+    gc.collect()
+    caches = init_caches(cfg, LM_SLOTS, LM_MAX_LEN, dev)
+    zeros = torch.zeros(LM_SLOTS, dtype=torch.int32, device=dev)
+    out["decode"] = counted(forward_decode, cfg, params, caches, zeros,
+                            zeros.clone())
+    del caches, zeros
+    tokens = torch.zeros((1, LM_PREFILL_LEN), dtype=torch.int32, device=dev)
+    out["prefill"] = counted(forward_prefill, cfg, params,
+                             {"tokens": tokens, "labels": tokens.clone()})
+    log("11b card side (phase 10a's parameters; FlopCounterMode, "
+        "memory_allocated above what was held before them): "
+        + json.dumps(out))
+    return out
 
 
 def _loss_and_grads(cfg, params, batch, mesh_ctx=None):
@@ -2331,8 +2408,10 @@ def _loss_and_grads(cfg, params, batch, mesh_ctx=None):
 
 
 def _leaf_rel(got, want):
-    """max |got - want| over max |want| of one leaf, on the host."""
-    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    """max |got - want| over max |want| of one leaf, on ``got``'s
+    device (``want`` may wait on the host)."""
+    got = got.detach().float()
+    want = want.detach().to(got.device).float()
     return float((got - want).abs().max() / max(float(want.abs().max()),
                                                 1e-6))
 
@@ -2391,6 +2470,7 @@ def lm_train_smoke(dev):
     tc = TrainConfig(opt=AdamWConfig(lr=1e-2, warmup_steps=1,
                                      total_steps=10))
     worst = 0.0
+    looks = []
     for arch in ARCH_IDS:
         cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
         host = init_params(cfg, torch.Generator().manual_seed(SEED), cpu)
@@ -2405,6 +2485,7 @@ def lm_train_smoke(dev):
         c_loss, c_grads = _loss_and_grads(cfg, card, on(batch, dev))
         errs = {"loss": abs(c_loss - h_loss) / abs(h_loss),
                 "grads": _tree_rel(c_grads, h_grads)}
+        looks += _router_look(arch, cfg, host, c_grads, h_grads)
         step = make_train_step(cfg, tc)
         h_p, h_s, _ = step(host, init_state(host), batch)
         c_p, c_s, _ = step(card, init_state(card), on(batch, dev))
@@ -2426,16 +2507,52 @@ def lm_train_smoke(dev):
             f"{h_loss:.6f}), {len(c_grads)} gradients, mu and nu after one "
             f"train step, the card against the CPU: max rel diff "
             f"{worst_arch:.3e} ({', '.join(f'{k} {v:.2e}' for k, v in errs.items())})")
-    return worst
+    return worst, looks
 
 
-def lm_train_dispatch(dev, cfg):
+def _router_look(arch, cfg, host, c_grads, h_grads):
+    """10b's look at the noise floor: every router gradient's largest
+    magnitude on the card and the CPU and their largest difference,
+    against the tree's largest CPU gradient.  A top-1 router (llama4's)
+    gets a zero gradient by construction (its one gate is normalised to
+    1), so both devices must hold noise there, below NOISE_FLOOR of the
+    tree's largest, which is what the floor in ``_tree_rel`` assumes; any
+    other router is held to its own largest, with no floor."""
+    top = max(float(h.abs().max()) for h in h_grads)
+    out = []
+    for (name, _), g, h in zip(host.named_parameters(), c_grads, h_grads):
+        if not name.endswith("router"):
+            continue
+        g, h = g.detach().float().cpu(), h.detach().float()
+        look = dict(arch=arch, leaf=name, top1=cfg.num_experts_per_tok == 1,
+                    card=float(g.abs().max()), cpu=float(h.abs().max()),
+                    diff=float((g - h).abs().max()), tree_max=top)
+        log(f"10b {arch} {name}: router gradient max |card| "
+            f"{look['card']:.3e}, max |CPU| {look['cpu']:.3e}, max |diff| "
+            f"{look['diff']:.3e}; the tree's largest {top:.3e} (floor "
+            f"{NOISE_FLOOR} of it: {NOISE_FLOOR * top:.3e})")
+        if look["top1"]:
+            check(max(look["card"], look["cpu"]) <= NOISE_FLOOR * top,
+                  f"10b {arch} {name}: a top-1 router's gradient is not "
+                  f"noise: {look}")
+        else:
+            check(look["diff"] <= TRAIN_CARD_REL * look["cpu"],
+                  f"10b {arch} {name}: the router gradient differs from "
+                  f"the CPU's by more than {TRAIN_CARD_REL} of its own "
+                  f"largest: {look}")
+        out.append(look)
+    return out
+
+
+def lm_train_dispatch(dev, cfg, bound=DISPATCH_REL, time_moe=True):
     """Phase 10c: ``cfg`` (deepseek-v2-236b at full width, cut to 2
-    layers) in bf16: ``forward_train`` and its backward pass with
-    ``moe_impl="dispatch"`` under a (2, 4) and a (2, 2, 2) grid
+    layers; bf16, then float32): ``forward_train`` and its backward pass
+    with ``moe_impl="dispatch"`` under a (2, 4) and a (2, 2, 2) grid
     ``MeshContext`` against ``moe_local`` (no mesh), capacity factor
-    large enough that no copy is dropped; and one MoE layer's
-    ``moe_apply`` timed both ways."""
+    large enough that no copy is dropped, within ``bound`` of each
+    leaf's largest; and (``time_moe``) one MoE layer's ``moe_apply``
+    timed both ways.  In float32 the ``moe_local`` gradients wait on the
+    host, so the card holds one set of 21 GB beside the parameters."""
     import dataclasses
     import numpy as np
     import torch
@@ -2453,14 +2570,18 @@ def lm_train_dispatch(dev, cfg):
     want_loss, want = _loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
     local_s = time.perf_counter() - t0
+    if cfg.dtype == "float32":
+        want = [w.cpu() for w in want]
     names = [n for n, _ in params.named_parameters()]
-    res = dict(arch=cfg.name, layers=cfg.num_layers, loss=want_loss,
-               local_fwd_bwd_ms=local_s * 1e3, meshes={})
+    res = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+               loss=want_loss, local_fwd_bwd_ms=local_s * 1e3, meshes={})
     x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (CUT_B, CUT_S, cfg.d_model))).to(dev, cfg.torch_dtype)
     lp = params["moe_blocks"][0]["moe"]
-    with torch.no_grad():
-        local_ms = time_ms(lambda: moe_apply(cfg, lp, x), 5)
+    local_ms = None
+    if time_moe:
+        with torch.no_grad():
+            local_ms = time_ms(lambda: moe_apply(cfg, lp, x), 5)
     for shape, axes, dp, ep, sched in DISPATCH_MESHES:
         c = dataclasses.replace(cfg, moe_dispatch=sched)
         ctx = MeshContext(make_mesh(shape, axes), dp, ep)
@@ -2472,24 +2593,27 @@ def lm_train_dispatch(dev, cfg):
                        zip(grads, want, names)), reverse=True)
         rel = max(abs(loss - want_loss) / abs(want_loss), leaf[0][0])
         del grads
-        with torch.no_grad():
-            ms = time_ms(lambda: moe_apply(c, lp, x, ctx), 5)
+        ms = None
+        if time_moe:
+            with torch.no_grad():
+                ms = time_ms(lambda: moe_apply(c, lp, x, ctx), 5)
         name = "x".join(map(str, shape)) + " " + "/".join(axes)
         res["meshes"][name] = dict(schedule=sched, ep_size=ctx.ep_size,
                                    loss=loss, max_rel=rel,
+                                   largest=[(n, r) for r, n in leaf[:4]],
                                    fwd_bwd_ms=secs * 1e3,
                                    moe_apply_ms=ms)
-        log(f"10c {cfg.name} cut to {cfg.num_layers} layers, B={CUT_B} "
-            f"S={CUT_S}, capacity factor {CUT_CF}: forward_train + backward "
-            f"through moe_dispatch on {name} ({sched}, EP {ctx.ep_size}) "
-            f"{secs * 1e3:.1f} ms, loss {loss:.5f} against moe_local's "
-            f"{want_loss:.5f} ({local_s * 1e3:.1f} ms), max rel diff of the "
-            f"loss and every gradient {rel:.3e} (bound {DISPATCH_REL}; "
-            f"largest leaves {', '.join(f'{n} {r:.2e}' for r, n in leaf[:4])}); "
-            f"one layer's moe_apply {ms:.3f} ms against moe_local's "
-            f"{local_ms:.3f} ms")
-        check(rel <= DISPATCH_REL, f"10c {name} {sched}: the dispatch "
-              f"differs from moe_local by {rel:.3e}, bound {DISPATCH_REL}")
+        log(f"10c {cfg.name} cut to {cfg.num_layers} layers, {cfg.dtype}, "
+            f"B={CUT_B} S={CUT_S}, capacity factor {CUT_CF}: forward_train "
+            f"+ backward through moe_dispatch on {name} ({sched}, EP "
+            f"{ctx.ep_size}) {secs * 1e3:.1f} ms, loss {loss:.5f} against "
+            f"moe_local's {want_loss:.5f} ({local_s * 1e3:.1f} ms), max rel "
+            f"diff of the loss and every gradient {rel:.3e} (bound {bound}; "
+            f"largest leaves {', '.join(f'{n} {r:.2e}' for r, n in leaf[:4])})"
+            + (f"; one layer's moe_apply {ms:.3f} ms against moe_local's "
+               f"{local_ms:.3f} ms" if time_moe else ""))
+        check(rel <= bound, f"10c {name} {sched} {cfg.dtype}: the dispatch "
+              f"differs from moe_local by {rel:.3e}, bound {bound}")
     res.update(moe_local_ms=local_ms,
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"10c peak {res['peak_gib']:.3f} GiB")
@@ -2583,13 +2707,198 @@ def lm_train_phase(dev, full_cfg=None, cut_cfg=None, smoke_cfg=None,
     reset_counts()
     res = dict(full=lm_train_full(dev, full_cfg, **full_kw))
     release()
-    res["card_vs_cpu_max_rel"] = lm_train_smoke(dev)
+    res["card_vs_cpu_max_rel"], res["router_look"] = lm_train_smoke(dev)
     res["dispatch"] = lm_train_dispatch(dev, cut_cfg)
+    release()
+    res["dispatch_f32"] = lm_train_dispatch(
+        dev, dataclasses.replace(cut_cfg, dtype="float32"),
+        bound=DISPATCH_REL_F32, time_moe=False)
     release()
     res["checkpoint"] = lm_train_checkpoint(dev, smoke_cfg)
     res["launches"] = kernel_counts()
     log("phase 10 summary: " + json.dumps(res))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dry-run (no kernel of its own: meta tensors and counters)
+# ---------------------------------------------------------------------------
+
+DRYRUN_RUNS = {"lm": ["--arch", LM_ARCH],
+               "mst replicated": ["--mst", "--mst-engine", "replicated"],
+               "mst sharded": ["--mst", "--mst-engine", "sharded"]}
+DRYRUN_TIMEOUT = 300
+DRYRUN_MEM_REL = 2e-2  # meta argument bytes against the card's allocation
+
+
+def dryrun_launcher():
+    """Phase 11a: ``python -m repro_torch.launch.dryrun`` for llama3.2-3b
+    x 4 shapes x both production meshes and for the MST cell of both
+    engines, three processes at once: every process exits 0, no record
+    failed, and the LM cells skipped are exactly those ``cell_supported``
+    refuses.  Each costed cell's roofline is printed."""
+    import os
+    import tempfile
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.shapes import SHAPES, cell_supported
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    records = {}
+    with tempfile.TemporaryDirectory() as d:
+        out = {k: os.path.join(d, k.replace(" ", "_") + ".json")
+               for k in DRYRUN_RUNS}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", out[k]], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for k, argv in DRYRUN_RUNS.items()}
+        try:
+            texts = {k: p.communicate(timeout=DRYRUN_TIMEOUT)
+                     for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        for k, p in procs.items():
+            check(p.returncode == 0,
+                  f"11a: dryrun {' '.join(DRYRUN_RUNS[k])} exited "
+                  f"{p.returncode}: {texts[k][0][-1000:]} "
+                  f"{texts[k][1][-2000:]}")
+            with open(out[k]) as f:
+                records[k] = json.load(f)
+    cfg = get_arch(LM_ARCH).config
+    meshes = ("pod-16x16", "multipod-2x16x16")
+    want_skipped = {(m, sh) for m in meshes for sh in SHAPES
+                    if not cell_supported(cfg, sh)[0]}
+    lm = records["lm"]
+    got_skipped = {(r["mesh"], r["shape"]) for r in lm
+                   if r["status"] == "skipped"}
+    failed = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}"
+              for recs in records.values() for r in recs
+              if r["status"] == "failed"]
+    check(not failed, f"11a: failed cells {failed}")
+    check(len(lm) == len(meshes) * len(SHAPES)
+          and got_skipped == want_skipped,
+          f"11a: skipped {sorted(got_skipped)}, cell_supported refuses "
+          f"{sorted(want_skipped)}")
+    check(all(len(records[k]) == len(meshes) for k in records if k != "lm"),
+          "11a: an MST run did not cost both meshes")
+    rows = []
+    for recs in records.values():
+        for r in recs:
+            if r["status"] != "ok":
+                continue
+            t = r["roofline"]
+            row = dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                       dominant=t["dominant"], compute_s=t["compute_s"],
+                       memory_s=t["memory_s"],
+                       collective_s=t["collective_s"],
+                       useful_ratio=r.get("useful_ratio"),
+                       costing_s=r["costing_s"])
+            rows.append(row)
+            log(f"11a [{row['mesh']}] {row['arch']} x {row['shape']}: "
+                f"dominant {row['dominant']}, compute_s {row['compute_s']}, "
+                f"memory_s {row['memory_s']}, collective_s "
+                f"{row['collective_s']}, useful_ratio {row['useful_ratio']}"
+                f" (costed in {row['costing_s']} s)")
+    log(f"11a: three dryrun processes in {secs:.1f} s wall; "
+        f"{len(rows)} cells costed, skipped {sorted(got_skipped)} "
+        "(cell_supported's rule), 0 failed")
+    return dict(seconds=secs, cells=rows, skipped=sorted(got_skipped))
+
+
+def dryrun_on_card(cfg, served, trained):
+    """Phase 11b: the cells that phases 9a and 10a ran (``cfg`` decode at
+    4 slots of 512, its 2048-token prefill, the train step at B = 1,
+    S = 4096) costed on the meta device on a 1 x 1 mesh
+    (``launch/dryrun.py: cost_cell``) and held to the card: the flops
+    equal to ``FlopCounterMode``'s count of the real step
+    (``card_counts``), the argument bytes within 2% of what the card
+    allocated for the step, and the measured time (9a's step and
+    prefill, 10a's step) at or above the roofline's step time."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import RooflineTerms
+    one = make_mesh((1, 1), ("data", "model"))
+    card = trained["full"]["card_counts"]
+    cells = {"decode": (dict(kind="decode", seq=LM_MAX_LEN, batch=LM_SLOTS),
+                        served["step_ms"], "9a's served step"),
+             "prefill": (dict(kind="prefill", seq=LM_PREFILL_LEN, batch=1),
+                         served["prefill_ms"], "9a's prefill"),
+             "train": (dict(kind="train", seq=TRAIN_S, batch=TRAIN_B),
+                       trained["full"]["step_ms"], "10a's step")}
+    out = {}
+    for name, (info, ms, what) in cells.items():
+        rec = dryrun.cost_cell(cfg, info, one)
+        terms = RooflineTerms(rec["cost"]["flops"], rec["cost"]["bytes"],
+                              rec["collectives"]["wire_bytes"], 1)
+        bound_ms = terms.step_time_s * 1e3
+        args = rec["memory"]["argument_bytes"]
+        alloc = card[name]["alloc"]
+        res = dict(flops=rec["cost"]["flops"], card_flops=card[name]["flops"],
+                   bytes=rec["cost"]["bytes"], argument_bytes=args,
+                   card_alloc=alloc, mem_rel=abs(args - alloc) / alloc,
+                   bound_ms=bound_ms, bound_by=terms.dominant,
+                   compute_ms=terms.compute_s * 1e3,
+                   memory_ms=terms.memory_s * 1e3, measured_ms=ms,
+                   measured_over_bound=ms / bound_ms,
+                   costing_s=rec["costing_s"])
+        out[name] = res
+        log(f"11b {cfg.name} {name} {info}: meta flops {res['flops']:.6e} "
+            f"(card FlopCounterMode {res['card_flops']:.6e}), bytes "
+            f"{res['bytes']:.6e}; argument bytes {args} against "
+            f"{alloc} allocated on the card ({res['mem_rel']:.3%}); "
+            f"roofline {bound_ms:.4f} ms ({terms.dominant}: compute "
+            f"{res['compute_ms']:.4f} ms, memory {res['memory_ms']:.4f} "
+            f"ms), {what} {ms:.3f} ms = {ms / bound_ms:.2f}x the bound; "
+            f"costed in {rec['costing_s']} s")
+        check(res["flops"] == res["card_flops"],
+              f"11b {name}: the meta count differs from the card's")
+        check(res["mem_rel"] <= DRYRUN_MEM_REL,
+              f"11b {name}: argument bytes {args} against {alloc} "
+              f"allocated, bound {DRYRUN_MEM_REL}")
+        check(ms >= bound_ms, f"11b {name}: {what} {ms:.4f} ms is under "
+              f"its roofline bound {bound_ms:.4f} ms: the costing is wrong")
+    return out
+
+
+def plan_bytes_on_card(dev, layout, n):
+    """Phase 11c: ``synthetic_plan`` replayed on phase 3's prebuilt
+    layout through ``make_sharded_mst_step(plan=...)`` (the residual
+    folds into ``overflow``), with ``adaptive_doubling`` off and on:
+    ``plan_exchange_bytes`` equals the replay's ``ExchangeStats.bytes``
+    with it off and bounds it with it on."""
+    import torch
+    from repro_torch.core.distributed_sharded import make_sharded_mst_step
+    from repro_torch.core.plan import synthetic_plan
+    from repro_torch.launch.roofline import plan_exchange_bytes
+    plan = synthetic_plan(n, layout.cap_total, NUM_SHARDS)
+    out = {}
+    for adaptive in (False, True):
+        pl = plan._replace(adaptive_doubling=adaptive)
+        step, _ = make_sharded_mst_step(n, layout.cap_total, NUM_SHARDS,
+                                        plan=pl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(*layout)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got, want = float(res[5].bytes), plan_exchange_bytes(pl)
+        key = "adaptive" if adaptive else "static"
+        out[key] = dict(replay_bytes=got, plan_bytes=want,
+                        overflow=int(res[4]), replay_s=secs)
+        log(f"11c synthetic plan ({pl.num_rounds} rounds) replayed on "
+            f"phase 3's layout (n={n}, p={NUM_SHARDS}), adaptive_doubling "
+            f"{adaptive}: ExchangeStats.bytes {got:.9e}, "
+            f"plan_exchange_bytes {want:.9e} ("
+            + ("must be equal" if not adaptive else "a bound") + f"); "
+            f"overflow + residual {int(res[4])}; replay {secs:.3f} s")
+        check(got == want if not adaptive else got <= want,
+              f"11c adaptive_doubling={adaptive}: plan bytes {want} "
+              f"against the replay's {got}")
+    return out
 
 
 def main() -> int:
@@ -2734,7 +3043,7 @@ def main() -> int:
             replicated_engine(dev, layout, n, u, v, w, cached["boruvka"][0],
                               ref_weight, ref_count)
             log(f"phase 3g: {time.perf_counter() - t0:.1f} s wall")
-            del layout
+            # the layout stays for phase 11c
 
     # phase 3c: the grid rung of the ghost push
     torch.cuda.reset_peak_memory_stats()
@@ -2941,9 +3250,22 @@ def main() -> int:
     t0 = time.perf_counter()
     trained = lm_train_phase(dev)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s wall")
+    # phase 11: the dry-run, counted from 0
+    t0 = time.perf_counter()
+    from repro_torch.configs.base import get_arch
+    reset_counts()
+    costing = dict(launcher=dryrun_launcher(),
+                   card=dryrun_on_card(get_arch(LM_ARCH).config, lm,
+                                       trained),
+                   plan_bytes=plan_bytes_on_card(dev, layout, n))
+    costing["launches"] = kernel_counts()
+    del layout
+    log("phase 11 summary: " + json.dumps(costing))
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s wall")
     for entry in kernels:
         entry["lm_path"] = lm["launches"][entry["name"]]
         entry["lm_train_path"] = trained["launches"][entry["name"]]
+        entry["dryrun_path"] = costing["launches"][entry["name"]]
     log(f"total: {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,10 +7,14 @@ copy of ``repro.configs``: the same dims, value for value, with
 ``torch_dtype`` in place of ``jdtype``.  ``moe_impl`` and
 ``moe_dispatch`` (the expert-parallel MoE path) and ``remat_policy`` (the
 training forward's per-layer recomputation) are kept with the
-reference's defaults.  ``scan_unroll``, ``cache_shard`` and
-``shard_logits`` steer only the reference's dry-run programs, compiled
-for the production mesh; they wait for the port's dry-run (ROADMAP item
-13c), and no config sets them.
+reference's defaults.  ``cache_shard`` and ``shard_logits`` are the
+dry-run's two knobs (``launch/shapes.py``: how a decode cell's caches
+and logits are partitioned), with the reference's defaults; no config
+sets them.  The reference's ``scan_unroll`` is left out: it only makes
+XLA's cost analysis see every layer of a scan, and the port's layers are
+Python loops that the dry-run's counter sees one by one
+(``launch/dryrun.py`` refuses ``--override scan_unroll=...`` and says
+so).
 """
 from __future__ import annotations
 
@@ -69,6 +73,9 @@ class ModelConfig:
     attn_block: int = 512             # KV chunk for blockwise attention
     remat_policy: str = "none"        # none | dots: what a layer's
     # recomputation keeps in the training forward (models/model.py)
+    cache_shard: str = "feature"      # feature | sequence: a decode
+    # cell's cache partitioning over the model axis (launch/shapes.py)
+    shard_logits: bool = False        # keep decode logits vocab-sharded
     kv_cache_dtype: str = "model"     # model | int8 (quantised KV cache)
     mla_absorb: bool = False          # MLA decode: absorb wkv_b into the
     # query/output (attention in latent space — no per-step re-expansion

@@ -10,6 +10,7 @@ axis names and sizes, which ``models/sharding.py``, ``MeshContext`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Sequence, Tuple
 
 
@@ -27,6 +28,11 @@ class Mesh:
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """Devices in the mesh (the reference's ``mesh.devices.size``)."""
+        return math.prod(self.sizes)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

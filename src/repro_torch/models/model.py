@@ -100,6 +100,13 @@ def stacked_shapes(params: Params) -> Dict[str, Tuple[int, ...]]:
     """{reference leaf path ("blocks/attn/wq"): stacked shape} of a
     ``Params`` tree: a per-layer group's leaves with their leading layer
     dim, as the reference stacks them."""
+    return {path: shape for path, (shape, _) in stacked_leaves(params)
+            .items()}
+
+
+def stacked_leaves(params: Params) -> Dict[str, Tuple[Tuple[int, ...],
+                                                      torch.dtype]]:
+    """``stacked_shapes`` with each leaf's dtype."""
     out = {}
 
     def walk(node, path, lead):
@@ -111,7 +118,7 @@ def stacked_shapes(params: Params) -> Dict[str, Tuple[int, ...]]:
             elif isinstance(child, Params):
                 walk(child, key, lead)
             else:
-                out["/".join(key)] = lead + tuple(child.shape)
+                out["/".join(key)] = (lead + tuple(child.shape), child.dtype)
     walk(params, (), ())
     return out
 
@@ -142,13 +149,18 @@ def _walk(fn, nodes):
 
 class _Init:
     """The reference's initialisers on one generator and device: normal
-    draws in fp32 times the scale, cast to the leaf's dtype."""
+    draws in fp32 times the scale, cast to the leaf's dtype.  On the
+    ``meta`` device a leaf has its shape and dtype and nothing is drawn
+    (the reference's ``jax.eval_shape(init_params)``)."""
 
-    def __init__(self, gen: torch.Generator, device: torch.device):
+    def __init__(self, gen: Optional[torch.Generator],
+                 device: torch.device):
         self.gen = gen
         self.device = device
 
     def dense(self, shape, dtype, scale=0.02):
+        if self.device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=self.device)
         x = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.gen.device)
         return (scale * x).to(device=self.device, dtype=dtype)
@@ -246,15 +258,22 @@ def layer_pattern(cfg: ModelConfig) -> Sequence[str]:
     return pat
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device: DeviceLike = None) -> Params:
     """The reference's parameter tree (names, shapes, dtypes and init
     scales: normal 0.02, the embedding 1.0, the conv taps 0.2, norms
     ones, biases zero), drawn from ``generator`` on its own device and
     placed on ``device`` (the card unless the CPU is named).  The draws
     cannot equal ``jax.random``'s; ``convert.params_from_reference``
-    carries a reference tree over value for value."""
+    carries a reference tree over value for value.
+
+    On ``device="meta"`` the tree holds shapes and dtypes only and
+    ``generator`` is neither read nor needed (None is accepted): the
+    dry-run's parameters (``launch/shapes.py``)."""
     device = resolve_device(device)
+    if generator is None and device.type != "meta":
+        raise ValueError("init_params draws from a generator on every "
+                         "device but meta")
     ini = _Init(generator, device)
     dt = cfg.torch_dtype
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers

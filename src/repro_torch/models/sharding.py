@@ -20,6 +20,7 @@ layout and move no number; the one mesh-dependent result is
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Tuple
 
 from repro_torch.models.model import Params, stacked_shapes
@@ -133,6 +134,25 @@ def valid_param_specs(params, mesh) -> Dict[str, Spec]:
     shapes = leaf_shapes(params)
     return {path: _valid(sp, shapes[path], mesh)
             for path, sp in param_specs(shapes).items()}
+
+
+def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The per-device shape of a leaf of ``shape`` under ``spec`` on
+    ``mesh`` (a ``launch/mesh.py: Mesh``): each dim divided by the sizes
+    of the axes its entry names, the reference's
+    ``NamedSharding(mesh, P(*spec)).shard_shape(shape)``.  A dim that
+    its axes do not divide raises ``ValueError``, as there."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        names = () if ax is None else (ax,) if isinstance(ax, str) else ax
+        size = math.prod(mesh.shape[a] for a in names)
+        if dim % size:
+            raise ValueError(f"dim {i} of shape {tuple(shape)} is not "
+                             f"divisible by {size}, the size of {ax!r} "
+                             f"in spec {spec}")
+        out.append(dim // size)
+    return tuple(out)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

@@ -39,10 +39,32 @@ def test_port_imports_neither_jax_nor_reference():
     # every package of the port is scanned, the training slice among them
     for sub in ("train", "models", "launch", "core", "comm", "serve"):
         assert any(f.parent == PORT / sub for f in files), sub
+    # the dry-run too
+    for mod in ("dryrun.py", "shapes.py"):
+        assert PORT / "launch" / mod in files, mod
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in FORBIDDEN]
     assert not bad, bad
+
+
+def test_dryrun_sets_no_device_count():
+    """The reference's dry-run sets 512 virtual XLA devices through
+    ``XLA_FLAGS`` at import; the port's sets no environment variable and
+    no process-wide device count."""
+    for mod in ("dryrun.py", "shapes.py"):
+        src = (PORT / "launch" / mod).read_text()
+        assert "XLA_FLAGS" not in src and "device_count" not in src, mod
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, (ast.Assign, ast.AugAssign)):
+                targets = getattr(node, "targets", [getattr(node, "target",
+                                                            None)])
+                assert not any("environ" in ast.unparse(t)
+                               for t in targets), (mod, ast.unparse(node))
+            if isinstance(node, ast.Call):
+                name = ast.unparse(node.func)
+                assert not name.endswith(("putenv", "environ.update",
+                                          "environ.setdefault")), (mod, name)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
