@@ -10,6 +10,13 @@ the ``changed`` flag once per round.
 Tie-breaking: the effective weight order is lexicographic ``(w, idx)``,
 a total order, so the chosen edge set is cycle-free and the MSF unique
 — the order of ``core/oracle.py``.
+
+Spans (``repro_torch.tracing``, off by default): ``static.solve``
+around ``boruvka_msf``; per round ``static.round`` (and the counter
+``static.rounds``), inside it ``static.minedges`` (timed on the card
+too), ``static.contract``, ``static.relabel`` and ``static.sync``, the
+host's read of ``changed``.  The dynamic engine's base case runs the
+same rounds, so it records them too.
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch import tracing
 
 
 def _doubling_iters(n: int) -> int:
@@ -88,14 +97,17 @@ def boruvka_round(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Borůvka round on dense labels. Returns (labels', mst', changed)."""
     m = u.shape[0]
-    ru = labels[u]
-    rv = labels[v]
-    _, emin = min_edge_per_component(ru, rv, w, n)
-    roots, has = contract_components(emin, u, v, labels, n, root_mask)
-    ce = emin.clamp(0, m - 1)
-    mst_i = mst.to(torch.int32).scatter_reduce(
-        0, ce.long(), has.to(torch.int32), "amax")
-    labels = roots[labels]
+    with tracing.span("static.minedges", u.device):
+        ru = labels[u]
+        rv = labels[v]
+        _, emin = min_edge_per_component(ru, rv, w, n)
+    with tracing.span("static.contract"):
+        roots, has = contract_components(emin, u, v, labels, n, root_mask)
+    with tracing.span("static.relabel"):
+        ce = emin.clamp(0, m - 1)
+        mst_i = mst.to(torch.int32).scatter_reduce(
+            0, ce.long(), has.to(torch.int32), "amax")
+        labels = roots[labels]
     return labels, mst_i.bool(), has.any()
 
 
@@ -108,8 +120,11 @@ def rounds_until_stable(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     changed = True
     rounds = 0
     while changed and rounds < max_rounds:
-        labels, mst, ch = boruvka_round(u, v, w, labels, mst, n)
-        changed = bool(ch)
+        with tracing.span("static.round"):
+            labels, mst, ch = boruvka_round(u, v, w, labels, mst, n)
+            with tracing.span("static.sync"):
+                changed = bool(ch)
+        tracing.count("static.rounds")
         rounds += 1
     return labels, mst
 
@@ -123,15 +138,18 @@ def boruvka_msf(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor, n: int,
     An empty edge list returns an empty mask and the identity labels
     (the reference raises there; the Kruskal oracle is the contract).
     """
-    m = u.shape[0]
-    dev = u.device
-    labels = torch.arange(n, dtype=torch.int32, device=dev)
-    mst = torch.zeros((m,), dtype=torch.bool, device=dev)
-    if m == 0:
+    with tracing.span("static.solve"):
+        m = u.shape[0]
+        dev = u.device
+        labels = torch.arange(n, dtype=torch.int32, device=dev)
+        mst = torch.zeros((m,), dtype=torch.bool, device=dev)
+        if m == 0:
+            return mst, labels
+        if max_rounds is None:
+            # each round at least halves #non-isolated components; a run
+            # over k edges touches <= 2k components.
+            max_rounds = max(1, math.ceil(math.log2(max(min(n, 2 * m), 2)))
+                             + 1)
+        labels, mst = rounds_until_stable(u, v, w, labels, mst, n,
+                                          max_rounds)
         return mst, labels
-    if max_rounds is None:
-        # each round at least halves #non-isolated components; a run over
-        # k edges touches <= 2k components.
-        max_rounds = max(1, math.ceil(math.log2(max(min(n, 2 * m), 2))) + 1)
-    labels, mst = rounds_until_stable(u, v, w, labels, mst, n, max_rounds)
-    return mst, labels

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm.exchange import psum_f32
 from repro_torch.core.graph import (INVALID_W, CapacityError,
                                     reference_order_sum)
@@ -99,38 +100,40 @@ def build_dist_graph(u: np.ndarray, v: np.ndarray, w: np.ndarray, n: int,
     is the index into the *undirected* input arrays, so a result mask
     over slots reduces back to the input edges via eid.  ``cap`` pins the
     per-shard slot count (>= ``ceil(2m/p)``, else ``CapacityError``).
+    Recorded as the span ``layout`` (``repro_torch.tracing``).
     """
-    m = len(u)
-    eid = np.arange(m, dtype=np.int32)
-    du = np.concatenate([u, v]).astype(np.int64)
-    dv = np.concatenate([v, u]).astype(np.int64)
-    dw = np.concatenate([w, w]).astype(np.float32)
-    de = np.concatenate([eid, eid])
-    order = np.lexsort((dw, dv, du))
-    du, dv, dw, de = du[order], dv[order], dw[order], de[order]
-    dm = len(du)
-    need = max(1, -(-dm // num_shards))
-    if cap is None:
-        cap = need
-    elif cap < need:
-        raise CapacityError(
-            f"cap={cap} cannot hold ceil(2m/p)={need} edge slots per "
-            f"shard (m={m}, p={num_shards}; "
-            f"{dm - cap * num_shards} directed copies would be silently "
-            "dropped)", dropped=dm - cap * num_shards)
-    uu = np.zeros(num_shards * cap, np.int32)
-    vv = np.zeros(num_shards * cap, np.int32)
-    ww = np.full(num_shards * cap, INVALID_W, np.float32)
-    ee = np.zeros(num_shards * cap, np.int32)
-    for s in range(num_shards):
-        lo, hi = s * cap, min((s + 1) * cap, dm)
-        if hi > lo:
-            k = hi - lo
-            uu[s * cap: s * cap + k] = du[lo:hi]
-            vv[s * cap: s * cap + k] = dv[lo:hi]
-            ww[s * cap: s * cap + k] = dw[lo:hi]
-            ee[s * cap: s * cap + k] = de[lo:hi]
-    return DistGraph.from_numpy(uu, vv, ww, ee, device=device), cap
+    with tracing.span("layout"):
+        m = len(u)
+        eid = np.arange(m, dtype=np.int32)
+        du = np.concatenate([u, v]).astype(np.int64)
+        dv = np.concatenate([v, u]).astype(np.int64)
+        dw = np.concatenate([w, w]).astype(np.float32)
+        de = np.concatenate([eid, eid])
+        order = np.lexsort((dw, dv, du))
+        du, dv, dw, de = du[order], dv[order], dw[order], de[order]
+        dm = len(du)
+        need = max(1, -(-dm // num_shards))
+        if cap is None:
+            cap = need
+        elif cap < need:
+            raise CapacityError(
+                f"cap={cap} cannot hold ceil(2m/p)={need} edge slots per "
+                f"shard (m={m}, p={num_shards}; "
+                f"{dm - cap * num_shards} directed copies would be silently "
+                "dropped)", dropped=dm - cap * num_shards)
+        uu = np.zeros(num_shards * cap, np.int32)
+        vv = np.zeros(num_shards * cap, np.int32)
+        ww = np.full(num_shards * cap, INVALID_W, np.float32)
+        ee = np.zeros(num_shards * cap, np.int32)
+        for s in range(num_shards):
+            lo, hi = s * cap, min((s + 1) * cap, dm)
+            if hi > lo:
+                k = hi - lo
+                uu[s * cap: s * cap + k] = du[lo:hi]
+                vv[s * cap: s * cap + k] = dv[lo:hi]
+                ww[s * cap: s * cap + k] = dw[lo:hi]
+                ee[s * cap: s * cap + k] = de[lo:hi]
+        return DistGraph.from_numpy(uu, vv, ww, ee, device=device), cap
 
 
 def _doubling_iters(n: int) -> int:

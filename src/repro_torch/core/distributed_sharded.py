@@ -61,6 +61,15 @@ raises.  ``execute_plan_batched`` replays one plan on B graphs with
 per-request overflow, ``verify=True`` checks a returned forest
 (``core/verify.py``), and both the driver and the replay take and resume
 from certified round checkpoints (``core/msf_checkpoint.py``).
+
+Spans (``repro_torch.tracing``, off by default): ``host_bounds`` around
+the numpy bounds at their call sites (the ``_HostGraph`` and the flat
+capacities of a solve, the ghost set-up and each round's bounds in
+``_shrinking_capacity_msf``); ``sharded.sync`` around every host read
+of a device value on its path and the rounds' (its copies of labels,
+dead mask, counters, overflow, ``go`` and the final mask; the
+preprocessing's and adaptive doubling's flags; the fused engine's
+``go``).
 """
 from __future__ import annotations
 
@@ -72,6 +81,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.comm import faults
 from repro_torch.comm.exchange import (ExchangeStats, _hops,
                                        _mask_to_copies, psum_f32, reply,
@@ -558,7 +568,8 @@ def _sharded_preprocess(u, v, w, eid, valid, n: int, vps: int,
     go, r = True, 0
     while go and r < _doubling_iters(sp.nloc) + 1:
         lab, mst, eligible = _prep_round(sp, lab, mst)
-        go = bool(eligible.any())
+        with tracing.span("sharded.sync"):
+            go = bool(eligible.any())
         r += 1
 
     # --- one routed (vid, root) scatter to the owners ------------------
@@ -766,7 +777,8 @@ def _sharded_contract(has, other, n: int, vps: int, capacity: int,
     for _ in range(_doubling_iters(n)):
         nxt, o, stats = hop(parent, stats)
         ov = ov + o
-        done = adaptive and not bool((nxt != parent).any())
+        with tracing.span("sharded.sync"):
+            done = adaptive and not bool((nxt != parent).any())
         parent = nxt
         if done:
             break
@@ -946,7 +958,8 @@ def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead,
             relabel_skip, pallas_minedges, grid_push, stats)
         overflow = overflow + o
         r += 1
-        go = bool(go_t)
+        with tracing.span("sharded.sync"):
+            go = bool(go_t)
     return lab, mst, dead, ghost, overflow, stats, rounds + r
 
 
@@ -1595,33 +1608,38 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
         lab, pre_mst, dead, ovf, st = _sharded_preprocess(
             u, v, w, eid, valid, n, vps, cl, axis_sizes, schedule,
             ExchangeStats.zeros(dev))
-        overflow += int(ovf)
-        acc += _stat_values(st)
+        with tracing.span("sharded.sync"):
+            overflow += int(ovf)
+            acc += _stat_values(st)
     else:
         lab = _bases(p, vps, dev) + torch.arange(vps, dtype=torch.int32,
                                                  device=dev)
         pre_mst = torch.zeros((p, cap), dtype=torch.bool, device=dev)
         dead = u == v
-    dead_h = dead.cpu().numpy().reshape(-1)
+    with tracing.span("sharded.sync"):
+        dead_h = dead.cpu().numpy().reshape(-1)
 
     gs = roots = cfg = None
     if ghost_cache:
         live_h = hg.valid & ~dead_h
-        lab_h = lab.cpu().numpy().reshape(-1)
-        roots = _root_table(_host_ghost_table(hg, live_h), lab_h)
-        Gu, Gv = hg.ghost_table_sizes()
-        bu, bv = _ghost_fill_bounds(hg, live_h)
-        gp = GhostPlan(Gu, Gv, quantize_capacity(bu, lk_full),
-                       quantize_capacity(bv, lk_full),
-                       quantize_capacity(_subscribe_capacity_bound(
-                           roots, p, vps), vps))
+        with tracing.span("sharded.sync"):
+            lab_h = lab.cpu().numpy().reshape(-1)
+        with tracing.span("host_bounds"):
+            roots = _root_table(_host_ghost_table(hg, live_h), lab_h)
+            Gu, Gv = hg.ghost_table_sizes()
+            bu, bv = _ghost_fill_bounds(hg, live_h)
+            gp = GhostPlan(Gu, Gv, quantize_capacity(bu, lk_full),
+                           quantize_capacity(bv, lk_full),
+                           quantize_capacity(_subscribe_capacity_bound(
+                               roots, p, vps), vps))
         if plan_out is not None:
             plan_out["ghost"] = gp
         gs, vidx, runs_u, ovf, st = _ghost_setup(
             u, v, valid, valid & ~dead, lab, hg.vperm, n, vps, *gp,
             axis_sizes, schedule, ExchangeStats.zeros(dev), grid_push)
-        overflow += int(ovf)
-        acc += _stat_values(st)
+        with tracing.span("sharded.sync"):
+            overflow += int(ovf)
+            acc += _stat_values(st)
         cfg = _GhostCfg(grid_push, tuple(axis_sizes), push_capacity)
         # after a fallback the rounds look up through the setup's
         # v-sorted index whatever ``vsorted`` says
@@ -1672,13 +1690,15 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                 # result is unreliable by contract and garbage labels
                 # would poison the host bounds, so stop and report
                 break
-            lab_h = lab.cpu().numpy().reshape(-1)
-            if roots is not None:
-                roots = _root_table(roots, lab_h)
-            caps = _host_round_caps(hg, lab_h, active_h & ~dead_h,
-                                    settled_h, ce_full, cl, lk_full,
-                                    coalesce, src_only, relabel_skip,
-                                    vsorted, cfg, roots)
+            with tracing.span("sharded.sync"):
+                lab_h = lab.cpu().numpy().reshape(-1)
+            with tracing.span("host_bounds"):
+                if roots is not None:
+                    roots = _root_table(roots, lab_h)
+                caps = _host_round_caps(hg, lab_h, active_h & ~dead_h,
+                                        settled_h, ce_full, cl, lk_full,
+                                        coalesce, src_only, relabel_skip,
+                                        vsorted, cfg, roots)
             if not caps.ghost:
                 roots = None  # the cache is dropped for good
             if plan_out is not None:
@@ -1696,10 +1716,12 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                 u, v, w, eid, static, lab, mst, dead, gs, settled, lo, hi,
                 n, vps, axis_sizes, caps, schedule, src_only, adaptive,
                 relabel_skip, pallas_minedges, grid_push)
-            overflow += int(ovf)
-            stv = _stat_values(st)
+            with tracing.span("sharded.sync"):
+                overflow += int(ovf)
+                stv = _stat_values(st)
+                dead_h = dead.cpu().numpy().reshape(-1)
+                go = bool(go)
             acc += stv
-            dead_h = dead.cpu().numpy().reshape(-1)
             if relabel_skip:
                 # the device's rule: a requesting vertex settles iff its
                 # pre-contraction component chose nothing this round
@@ -1730,7 +1752,6 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                     "pushed_items": float(stv[6]),
                     "injected_items": float(stv[7]),
                 })
-            go = bool(go)
             if (ckpt_out is not None and ckpt_every
                     and rounds % ckpt_every == 0 and not overflow):
                 # re-enter mid-level if the level goes on, else at the
@@ -1748,7 +1769,8 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
                 break
 
     mask_t = (mst | pre_mst).reshape(-1)
-    mask = mask_t.cpu().numpy()
+    with tracing.span("sharded.sync"):
+        mask = mask_t.cpu().numpy()
 
     def put(x, dtype):
         return torch.tensor(x, dtype=dtype, device=dev)
@@ -2164,11 +2186,12 @@ def distributed_sharded_msf(graph: DistGraph, n: int, num_shards, *,
                                               axis_sizes, ghost_shard_limit)
     vps = vertices_per_shard(n, p)
     cap = graph.cap_total // p
-    hg = _HostGraph(graph, p, n) \
-        if (coalesce or shrink_capacities or ghost_cache) else None
-    ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
-                                  label_capacity, lookup_capacity, coalesce,
-                                  ghost_cache, vsorted_index)
+    with tracing.span("host_bounds"):
+        hg = _HostGraph(graph, p, n) \
+            if (coalesce or shrink_capacities or ghost_cache) else None
+        ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
+                                      label_capacity, lookup_capacity,
+                                      coalesce, ghost_cache, vsorted_index)
     if shrink_capacities:
         return _shrinking_capacity_msf(
             graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce,
@@ -2229,10 +2252,11 @@ def plan_sharded_msf(graph: DistGraph, n: int, num_shards, *,
     p = math.prod(axis_sizes)
     ghost_cache, grid_push = _ghost_push_mode(ghost_cache, ghost_push,
                                               axis_sizes, ghost_shard_limit)
-    hg = _HostGraph(graph, p, n)
-    ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
-                                  label_capacity, lookup_capacity, coalesce,
-                                  ghost_cache, vsorted_index)
+    with tracing.span("host_bounds"):
+        hg = _HostGraph(graph, p, n)
+        ce, cl, lk = _full_capacities(graph, hg, n, p, edge_capacity,
+                                      label_capacity, lookup_capacity,
+                                      coalesce, ghost_cache, vsorted_index)
     rec: dict = {}
     res = _shrinking_capacity_msf(
         graph, hg, n, axis_sizes, algorithm, num_levels, max_rounds, ce, cl,

@@ -17,6 +17,11 @@ power-of-two-padded slices.  Its random draws are numpy's, in the
 reference's order, so both pick the same pivots.
 
 Both give the unique MSF under the ``(w, edge-id)`` total order.
+
+Spans (``repro_torch.tracing``): the static engine records
+``static.solve`` around its body and ``static.sort`` around the sort,
+the bucket arrays and the mask scattered back; its rounds record
+``core/boruvka.py``'s.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import oracle
 from repro_torch.core.boruvka import rounds_until_stable
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,31 +54,36 @@ def filter_boruvka_msf(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     An empty edge list returns an empty mask and the identity labels
     (the reference raises there; the Kruskal oracle is the contract).
     """
-    m = u.shape[0]
-    dev = u.device
-    labels = torch.arange(n, dtype=torch.int32, device=dev)
-    if m == 0:
-        return torch.zeros((0,), dtype=torch.bool, device=dev), labels
-    num_buckets = max(1, min(num_buckets, m))
-    bucket = -(-m // num_buckets)
-    pad = bucket * num_buckets - m
-    # ties, -0.0 with +0.0 too, broken by index: (w, idx), as the
-    # reference's stable sort
-    order = torch.argsort(w, stable=True)
-    us = torch.cat([u[order], torch.zeros(pad, dtype=u.dtype, device=dev)])
-    vs = torch.cat([v[order], torch.zeros(pad, dtype=v.dtype, device=dev)])
-    ws = torch.cat([w[order], torch.full((pad,), float("inf"),
-                                         dtype=w.dtype, device=dev)])
-    mask_sorted = torch.zeros(num_buckets * bucket, dtype=torch.bool,
-                              device=dev)
-    rounds = _bucket_rounds(bucket, n)
-    for b in range(num_buckets):  # static schedule of quantile buckets
-        sl = slice(b * bucket, (b + 1) * bucket)
-        labels, mask_sorted[sl] = rounds_until_stable(
-            us[sl], vs[sl], ws[sl], labels, mask_sorted[sl], n, rounds)
-    mask = torch.zeros(m, dtype=torch.bool, device=dev)
-    mask[order] = mask_sorted[:m]
-    return mask, labels
+    with tracing.span("static.solve"):
+        m = u.shape[0]
+        dev = u.device
+        labels = torch.arange(n, dtype=torch.int32, device=dev)
+        if m == 0:
+            return torch.zeros((0,), dtype=torch.bool, device=dev), labels
+        num_buckets = max(1, min(num_buckets, m))
+        bucket = -(-m // num_buckets)
+        pad = bucket * num_buckets - m
+        with tracing.span("static.sort"):
+            # ties, -0.0 with +0.0 too, broken by index: (w, idx), as the
+            # reference's stable sort
+            order = torch.argsort(w, stable=True)
+            us = torch.cat([u[order], torch.zeros(pad, dtype=u.dtype,
+                                                  device=dev)])
+            vs = torch.cat([v[order], torch.zeros(pad, dtype=v.dtype,
+                                                  device=dev)])
+            ws = torch.cat([w[order], torch.full((pad,), float("inf"),
+                                                 dtype=w.dtype, device=dev)])
+            mask_sorted = torch.zeros(num_buckets * bucket, dtype=torch.bool,
+                                      device=dev)
+        rounds = _bucket_rounds(bucket, n)
+        for b in range(num_buckets):  # static schedule of quantile buckets
+            sl = slice(b * bucket, (b + 1) * bucket)
+            labels, mask_sorted[sl] = rounds_until_stable(
+                us[sl], vs[sl], ws[sl], labels, mask_sorted[sl], n, rounds)
+        with tracing.span("static.sort"):
+            mask = torch.zeros(m, dtype=torch.bool, device=dev)
+            mask[order] = mask_sorted[:m]
+        return mask, labels
 
 
 # --------------------------------------------------------------------------
