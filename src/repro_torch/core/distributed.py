@@ -7,6 +7,8 @@ Section II-B): both directions of every undirected edge,
 lexicographically sorted, 1D-partitioned into equal padded shards;
 every directed copy carries the undirected edge id ``eid`` so that
 tie-breaking uses the direction-independent total order ``(w, eid)``.
+``build_dist_graph`` lays it out on the device it is built for, with
+stable device sorts, slot for slot the reference's numpy layout.
 ``shrink_schedule``/``quantize_capacity`` are the capacity ladder of
 both engines' shrinking rounds.
 
@@ -91,27 +93,35 @@ class DistGraph(NamedTuple):
                    put(eid, np.int32))
 
 
-def build_dist_graph(u: np.ndarray, v: np.ndarray, w: np.ndarray, n: int,
-                     num_shards: int, cap: Optional[int] = None,
-                     device: DeviceLike = None) -> Tuple[DistGraph, int]:
-    """Host-side: canonical undirected edges -> doubled, sorted, padded.
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """A host array or a tensor, on ``dev`` in its own dtype."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev)
 
-    Returns (graph, cap) with the reference's exact slot layout.  ``eid``
-    is the index into the *undirected* input arrays, so a result mask
-    over slots reduces back to the input edges via eid.  ``cap`` pins the
-    per-shard slot count (>= ``ceil(2m/p)``, else ``CapacityError``).
-    Recorded as the span ``layout`` (``repro_torch.tracing``).
+
+def build_dist_graph(u, v, w, n: int, num_shards: int,
+                     cap: Optional[int] = None,
+                     device: DeviceLike = None) -> Tuple[DistGraph, int]:
+    """Canonical undirected edges -> doubled, sorted, padded, on ``device``.
+
+    ``u``, ``v``, ``w`` are host arrays or tensors (ids in ``[0, n)``,
+    weights not NaN); they are moved to ``device`` once and the layout is
+    built there.  Returns (graph, cap) with the reference's exact slot
+    layout: the 2m directed copies in ``np.lexsort((w, v, u))`` order,
+    ties in their doubled-array order, shard s holding sorted slots
+    ``[s * cap, (s + 1) * cap)`` and the tail padded with ``INVALID_W``.
+    ``eid`` is the index into the *undirected* input arrays, so a result
+    mask over slots reduces back to the input edges via eid.  ``cap``
+    pins the per-shard slot count (>= ``ceil(2m/p)``, else
+    ``CapacityError``).  Recorded as the span ``layout`` (on a card
+    timed by CUDA events too) and the counter ``layout.copies`` (2m)
+    (``repro_torch.tracing``).
     """
-    with tracing.span("layout"):
+    dev = resolve_device(device)
+    with tracing.span("layout", device=dev):
         m = len(u)
-        eid = np.arange(m, dtype=np.int32)
-        du = np.concatenate([u, v]).astype(np.int64)
-        dv = np.concatenate([v, u]).astype(np.int64)
-        dw = np.concatenate([w, w]).astype(np.float32)
-        de = np.concatenate([eid, eid])
-        order = np.lexsort((dw, dv, du))
-        du, dv, dw, de = du[order], dv[order], dw[order], de[order]
-        dm = len(du)
+        dm = 2 * m
         need = max(1, -(-dm // num_shards))
         if cap is None:
             cap = need
@@ -121,19 +131,28 @@ def build_dist_graph(u: np.ndarray, v: np.ndarray, w: np.ndarray, n: int,
                 f"shard (m={m}, p={num_shards}; "
                 f"{dm - cap * num_shards} directed copies would be silently "
                 "dropped)", dropped=dm - cap * num_shards)
-        uu = np.zeros(num_shards * cap, np.int32)
-        vv = np.zeros(num_shards * cap, np.int32)
-        ww = np.full(num_shards * cap, INVALID_W, np.float32)
-        ee = np.zeros(num_shards * cap, np.int32)
-        for s in range(num_shards):
-            lo, hi = s * cap, min((s + 1) * cap, dm)
-            if hi > lo:
-                k = hi - lo
-                uu[s * cap: s * cap + k] = du[lo:hi]
-                vv[s * cap: s * cap + k] = dv[lo:hi]
-                ww[s * cap: s * cap + k] = dw[lo:hi]
-                ee[s * cap: s * cap + k] = de[lo:hi]
-        return DistGraph.from_numpy(uu, vv, ww, ee, device=device), cap
+        tracing.count("layout.copies", dm)
+        u = _on(u, dev).to(torch.int32)
+        v = _on(v, dev).to(torch.int32)
+        w = _on(w, dev).to(torch.float32)
+        eid = torch.arange(m, dtype=torch.int32, device=dev)
+        du, dv = torch.cat([u, v]), torch.cat([v, u])
+        dw, de = torch.cat([w, w]), torch.cat([eid, eid])
+        # np.lexsort((dw, dv, du)) as two stable sorts, least significant
+        # key first: + 0.0 makes -0.0 tie with +0.0 as numpy compares
+        # them, and (du, dv) fit one int64 key since ids are below n
+        order = torch.sort(dw + 0.0, stable=True).indices
+        key = (du.long() * n + dv)[order]
+        order = order[torch.sort(key, stable=True).indices]
+        pad = num_shards * cap - dm
+
+        def lay(x: torch.Tensor, fill) -> torch.Tensor:
+            return torch.cat([x[order], torch.full((pad,), fill,
+                                                   dtype=x.dtype,
+                                                   device=dev)])
+
+        return DistGraph(lay(du, 0), lay(dv, 0), lay(dw, float(INVALID_W)),
+                         lay(de, 0)), cap
 
 
 def _doubling_iters(n: int) -> int:

@@ -44,22 +44,21 @@ def _distributed_dispatch(edges: EdgeList, num_shards, engine: str,
                           **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bridge the single-array public API onto the distributed engines.
 
-    Host-side: drop padding, double + sort + 1D-partition the edges (the
-    engines' input format), run, then reduce the slot mask back to the
-    caller's edge positions via the undirected edge ids.  ``kw`` reaches
-    the engine whole, a sharded ``plan`` with it: the layout built here
-    is ``build_dist_graph`` of the finite edges, the shape a plan must
-    have been measured at.  Repeated solves of one graph should build a
-    ``DistGraph`` once and call the engine (or ``execute_plan``)
-    directly.
+    On the edges' device: drop the non-finite weights, then double +
+    sort + 1D-partition the rest (``build_dist_graph``, the engines'
+    input format); run; then reduce the slot mask back to the caller's
+    edge positions via the undirected edge ids on the host.  ``kw``
+    reaches the engine whole, a sharded ``plan`` with it: the layout
+    built here is ``build_dist_graph`` of the finite edges, the shape a
+    plan must have been measured at.  Repeated solves of one graph
+    should build a ``DistGraph`` once and call the engine (or
+    ``execute_plan``) directly.
     """
     dev = edges.u.device
-    u = edges.u.cpu().numpy()
-    v = edges.v.cpu().numpy()
-    w = edges.w.cpu().numpy()
-    idx = np.nonzero(np.isfinite(w))[0]
-    g, _ = build_dist_graph(u[idx], v[idx], w[idx], edges.n,
-                            math.prod(shard_layout(num_shards)), device=dev)
+    idx = torch.isfinite(edges.w).nonzero().squeeze(1)
+    g, _ = build_dist_graph(edges.u[idx], edges.v[idx], edges.w[idx],
+                            edges.n, math.prod(shard_layout(num_shards)),
+                            device=dev)
     run = (distributed_msf if engine == "distributed"
            else distributed_sharded_msf)
     res = run(g, edges.n, num_shards, algorithm=algorithm, **kw)
@@ -74,7 +73,7 @@ def _distributed_dispatch(edges: EdgeList, num_shards, engine: str,
     mask_slots = res[0].cpu().numpy()
     sel = np.unique(g.eid.cpu().numpy()[mask_slots])
     out = np.zeros(edges.m, bool)
-    out[idx[sel]] = True
+    out[idx.cpu().numpy()[sel]] = True
     return torch.from_numpy(out).to(dev), res[1]
 
 

@@ -21,12 +21,13 @@ import torch
 
 from repro.core import oracle
 from repro.core.distributed import build_dist_graph as jax_build_dist_graph
+from repro.core.graph import CapacityError as JaxCapacityError
 from repro_torch.comm.exchange import (ExchangeStats, reply, request_reply,
                                        routed_exchange)
 from repro_torch.core.distributed import DistGraph, build_dist_graph
 from repro_torch.core.distributed_sharded import (distributed_sharded_msf,
                                                   execute_plan)
-from repro_torch.core.graph import from_numpy
+from repro_torch.core.graph import CapacityError, from_numpy
 from repro_torch.core.mst import minimum_spanning_forest
 from repro_torch.core.plan import synthetic_plan
 from tests.helpers import graph_families
@@ -267,6 +268,74 @@ def test_build_dist_graph_layout_matches_reference(family):
             assert got.dtype == exp.dtype, (family, p, k)
             np.testing.assert_array_equal(got, exp,
                                           err_msg=f"{family} p={p} {k}")
+
+
+def _edges(u, v, w):
+    return (np.array(u, np.int32), np.array(v, np.int32),
+            np.array(w, np.float32))
+
+
+def _mixed_ties():
+    """60 edges on 6 vertices: parallel copies, self-loops, and weights
+    from a set with both signed zeros and both infinities."""
+    rng = np.random.default_rng(7)
+    pick = np.array([-0.0, 0.0, 1.0, 2.0, np.inf, -np.inf], np.float32)
+    return (rng.integers(0, 6, 60).astype(np.int32),
+            rng.integers(0, 6, 60).astype(np.int32), rng.choice(pick, 60))
+
+
+# name -> ((u, v, w), n, p, cap); the torch_inputs case hands tensors in
+LAYOUT_CASES = {
+    "parallel_equal_weights": (_edges([0, 1, 0, 2, 1, 0], [1, 0, 1, 3, 0, 1],
+                                      [2, 2, 2, 1, 2, 2]), 4, 3, None),
+    "signed_zeros": (_edges([0, 0, 1, 1, 0], [1, 1, 2, 2, 1],
+                            [-0.0, 0.0, 0.0, -0.0, -0.0]), 3, 2, None),
+    "infinite_weights": (_edges([0, 0, 1, 2, 0], [1, 1, 2, 0, 2],
+                                [np.inf, -np.inf, 1, np.inf, -np.inf]),
+                         3, 2, None),
+    "self_loops": (_edges([1, 1, 0, 2, 0], [1, 0, 0, 2, 1],
+                          [3, 1, 1, 3, 1]), 3, 3, None),
+    "empty": (_edges([], [], []), 5, 4, None),
+    "p_not_dividing_2m": (_edges([0, 1, 2, 3, 4], [1, 2, 3, 4, 0],
+                                 [5, 4, 3, 2, 1]), 5, 4, None),
+    "pinned_cap": (_edges([0, 1, 2, 3, 4], [1, 2, 3, 4, 0],
+                          [1, 1, 2, 2, 1]), 5, 4, 6),
+    "mixed_ties": (_mixed_ties(), 6, 5, None),
+    "torch_inputs": (_mixed_ties(), 6, 3, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_build_dist_graph_edge_cases_match_reference(case):
+    """The device-sorted layout against the reference's ``np.lexsort``
+    slot for slot: tie order, the sign of every zero weight, padding,
+    ``cap`` and its ``CapacityError``."""
+    (u, v, w), n, p, cap = LAYOUT_CASES[case]
+    jg, jcap = jax_build_dist_graph(u, v, w, n, p, cap=cap)
+    args = (u, v, w)
+    if case == "torch_inputs":
+        args = tuple(torch.from_numpy(x) for x in args)
+    tg, tcap = build_dist_graph(*args, n, p, cap=cap, device=CPU)
+    assert tcap == jcap and tg.cap_total == p * tcap
+    for k in ("u", "v", "w", "eid"):
+        exp = np.asarray(getattr(jg, k))
+        got = getattr(tg, k).numpy()
+        assert got.dtype == exp.dtype, (case, k)
+        # bit for bit, so -0.0 and +0.0 are told apart
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      exp.view(np.int32),
+                                      err_msg=f"{case} {k}")
+    if case == "torch_inputs":
+        ng, _ = build_dist_graph(u, v, w, n, p, device=CPU)
+        assert all(torch.equal(a, b) for a, b in zip(ng, tg))
+    need = max(1, -(-2 * len(u) // p))
+    if need > 1:
+        with pytest.raises(JaxCapacityError) as jerr:
+            jax_build_dist_graph(u, v, w, n, p, cap=need - 1)
+        with pytest.raises(CapacityError, match="cannot hold") as terr:
+            build_dist_graph(*args, n, p, cap=need - 1, device=CPU)
+        assert str(terr.value) == str(jerr.value)
+        assert terr.value.dropped == jerr.value.dropped > 0
 
 
 def test_unported_levers_raise():

@@ -170,3 +170,49 @@ def test_sharded_engine_same_with_tracing_on(algorithm, monkeypatch):
     assert len(caps) >= 2 * len(on[2])
     assert labels.count("sharded.sync") > 2 * len(on[2])
     assert trace.events == {}
+
+
+def test_layout_span_and_copies_counter():
+    """One build of m edges: one ``layout`` span and 2m ``layout.copies``
+    with the recorder on; nothing with it off."""
+    u, v, w = generators.gnm(64, 300, seed=2)[:3]
+    build_dist_graph(u, v, w, 64, 3, device=CPU)
+    assert tracing.disable().records == []
+    tracing.enable()
+    build_dist_graph(u, v, w, 64, 3, device=CPU)
+    trace = tracing.disable()
+    assert [r[0] for r in trace.records] == ["layout"]
+    assert trace.counters == {"layout.copies": 2 * len(u)}
+    assert trace.events == {}
+
+
+@pytest.mark.cuda
+def test_cuda_layout_matches_cpu_and_is_timed_on_the_card():
+    """The layout built on the card (CUB's radix sorts at this size) is
+    the CPU build's slot for slot, signed zeros and ties included, and
+    its ``layout`` span carries a CUDA event pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(11)
+    n, m = 1 << 12, 1 << 15
+    u = rng.integers(0, n, m).astype(np.int32)
+    v = rng.integers(0, n, m).astype(np.int32)
+    w = rng.choice(np.array([-0.0, 0.0, 1.0, np.inf, -np.inf], np.float32),
+                   m)
+    for p in (1, 8):
+        cg, ccap = build_dist_graph(u, v, w, n, p, device=CPU)
+        tracing.enable()
+        dg, dcap = build_dist_graph(torch.from_numpy(u).cuda(),
+                                    torch.from_numpy(v).cuda(),
+                                    torch.from_numpy(w).cuda(), n, p,
+                                    device="cuda")
+        trace = tracing.disable()
+        assert dcap == ccap
+        for k, a, b in zip(cg._fields, cg, dg):
+            assert b.device.type == "cuda" and b.dtype == a.dtype, k
+            assert torch.equal(a.view(torch.int32),
+                               b.cpu().view(torch.int32)), (p, k)
+        (_, start, end), = trace.events["layout"]
+        torch.cuda.synchronize()
+        assert start.elapsed_time(end) > 0
+        assert trace.counters == {"layout.copies": 2 * m}
