@@ -69,7 +69,13 @@ capacities of a solve, the ghost set-up and each round's bounds in
 of a device value on its path and the rounds' (its copies of labels,
 dead mask, counters, overflow, ``go`` and the final mask; the
 preprocessing's and adaptive doubling's flags; the fused engine's
-``go``).
+``go``); ``sharded.prep`` (with CUDA events) around the body of
+``_sharded_preprocess``, whoever calls it.  Counters: ``prep.rounds``
+(the preprocessing's rounds), ``prep.forest_edges`` (the forest edges
+it contracted, read with its round flags) and ``sharded.forest_edges``
+(each finished forest's edges: the host mask of
+``_shrinking_capacity_msf``, or one read of the fused engine's or the
+replay's count).
 """
 from __future__ import annotations
 
@@ -559,36 +565,51 @@ def _sharded_preprocess(u, v, w, eid, valid, n: int, vps: int,
     Returns (lab [p, vps], pre_mst [p, cap] bool, dead0 [p, cap] bool,
     overflow, stats); the changed labels reach their owners in one
     routed ``(vid, root)`` scatter of capacity ``min(capacity, cap)``.
-    """
-    p, cap = u.shape
-    dev = u.device
-    sp = _prep_space(u, v, w, eid, valid, n)
-    lab = torch.arange(cap, dtype=torch.int32, device=dev).repeat(p, 1)
-    mst = torch.zeros((p, cap), dtype=torch.int32, device=dev)
-    go, r = True, 0
-    while go and r < _doubling_iters(sp.nloc) + 1:
-        lab, mst, eligible = _prep_round(sp, lab, mst)
-        with tracing.span("sharded.sync"):
-            go = bool(eligible.any())
-        r += 1
 
-    # --- one routed (vid, root) scatter to the owners ------------------
-    root_slot = _take(_take(sp.uvals, lab), sp.du)  # root of each source
-    changed = sp.head & valid & (root_slot != u)
-    ex = routed_exchange((u, root_slot), u // vps, changed,
-                         min(capacity, cap), axis_sizes, schedule,
-                         stats=stats, site="prep")
-    base = _bases(p, vps, dev)
-    vid = base + torch.arange(vps, dtype=torch.int32, device=dev)
-    ok = ex.recv_ok.reshape(p, -1)
-    off = torch.where(ok, ex.recv[0].reshape(p, -1) - base, vps)
-    lab_out = torch.cat([vid, torch.full((p, 1), -1, dtype=torch.int32,
-                                         device=dev)], 1)
-    lab_out = lab_out.scatter_(1, off.long(), ex.recv[1].reshape(p, -1))
-    same = sp.v_found & (_take(lab, sp.du) == _take(lab, sp.dv))
-    dead0 = (u == v) | same  # locally-internal edges incl. self-loops
-    return (lab_out[:, :vps].contiguous(), mst.bool(), dead0, ex.overflow,
-            ex.stats)
+    The span ``sharded.prep`` (timed on the card too) covers the whole
+    body, every caller's: ``_shrinking_capacity_msf``, the fused engine
+    and the planned replay.  While the recorder is on, ``prep.rounds``
+    counts the ``_prep_round`` calls and ``prep.forest_edges`` the
+    ``pre_mst`` slots, read with each round's flag.
+    """
+    with tracing.span("sharded.prep", u.device):
+        p, cap = u.shape
+        dev = u.device
+        sp = _prep_space(u, v, w, eid, valid, n)
+        lab = torch.arange(cap, dtype=torch.int32, device=dev).repeat(p, 1)
+        mst = torch.zeros((p, cap), dtype=torch.int32, device=dev)
+        counting = tracing.recording()
+        go, r, found = True, 0, 0
+        while go and r < _doubling_iters(sp.nloc) + 1:
+            lab, mst, eligible = _prep_round(sp, lab, mst)
+            with tracing.span("sharded.sync"):
+                if counting:  # the forest count rides on the flag's read
+                    go, found = torch.stack([eligible.any().long(),
+                                             mst.sum()]).tolist()
+                else:
+                    go = bool(eligible.any())
+            r += 1
+        tracing.count("prep.rounds", r)
+        tracing.count("prep.forest_edges", found)
+
+        # --- one routed (vid, root) scatter to the owners --------------
+        root_slot = _take(_take(sp.uvals, lab), sp.du)  # each source's root
+        changed = sp.head & valid & (root_slot != u)
+        ex = routed_exchange((u, root_slot), u // vps, changed,
+                             min(capacity, cap), axis_sizes, schedule,
+                             stats=stats, site="prep")
+        base = _bases(p, vps, dev)
+        vid = base + torch.arange(vps, dtype=torch.int32, device=dev)
+        ok = ex.recv_ok.reshape(p, -1)
+        off = torch.where(ok, ex.recv[0].reshape(p, -1) - base, vps)
+        lab_out = torch.cat([vid, torch.full((p, 1), -1, dtype=torch.int32,
+                                             device=dev)], 1)
+        lab_out = lab_out.scatter_(1, off.long(),
+                                   ex.recv[1].reshape(p, -1))
+        same = sp.v_found & (_take(lab, sp.du) == _take(lab, sp.dv))
+        dead0 = (u == v) | same  # locally-internal edges incl. self-loops
+        return (lab_out[:, :vps].contiguous(), mst.bool(), dead0,
+                ex.overflow, ex.stats)
 
 
 # --------------------------------------------------------------------------
@@ -963,6 +984,14 @@ def _sharded_rounds(u, v, w, eid, valid, lab, mst, dead,
     return lab, mst, dead, ghost, overflow, stats, rounds + r
 
 
+def _count_forest(count) -> None:
+    """The counter ``sharded.forest_edges`` of a forest formed on the
+    device: one host read of ``count``, only while the recorder is on."""
+    if tracing.recording():
+        with tracing.span("sharded.sync"):
+            tracing.count("sharded.forest_edges", int(count))
+
+
 def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
                       axis_sizes: Sequence[int], algorithm: str,
                       num_levels: int, max_rounds: Optional[int],
@@ -1041,6 +1070,7 @@ def _sharded_shard_fn(u, v, w, eid, n: int, vps: int,
     full_mask = mst | pre_mst
     weight = psum_f32(reference_order_sum(torch.where(full_mask, w, 0.0)))
     count = full_mask.sum(dtype=torch.int32)
+    _count_forest(count)
     comm = CommStats(stats.calls, stats.items, stats.bytes,
                      torch.tensor(rounds, dtype=torch.int32, device=dev),
                      stats.hits, stats.misses, stats.pushed, stats.injected)
@@ -1777,8 +1807,10 @@ def _shrinking_capacity_msf(graph: DistGraph, hg: _HostGraph, n: int,
 
     comm = _comm_from_acc(acc, rounds, dev)
     weight = np.float32(np.sum(hg.w[mask], dtype=np.float64))
+    forest = int(mask.sum())
+    tracing.count("sharded.forest_edges", forest)
     return (mask_t, put(weight, torch.float32),
-            put(int(mask.sum()), torch.int32), lab.reshape(-1),
+            put(forest, torch.int32), lab.reshape(-1),
             put(overflow, torch.int32), comm)
 
 
@@ -1909,6 +1941,8 @@ def _planned_shard_fn(u, v, w, eid, n: int, vps: int,
     full_mask = mst | pre_mst
     weight = psum_f32(reference_order_sum(torch.where(full_mask, w, 0.0)))
     count = full_mask.sum(dtype=torch.int32)
+    if stop == R:  # the segment that completes the forest
+        _count_forest(count)
     comm = CommStats(stats.calls, stats.items, stats.bytes,
                      torch.tensor(stop - start, dtype=torch.int32,
                                   device=dev),

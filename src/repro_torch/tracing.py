@@ -28,7 +28,10 @@ Usage::
     trace.counters["static.rounds"]
 
 The labels the program records, and the metric that reads each, are
-listed in ``PERF.md`` (section 3).
+listed in ``PERF.md`` (section 3): among them the sharded engine's
+``sharded.prep`` span (its local preprocessing, timed on the card too)
+and the counters ``prep.rounds``, ``prep.forest_edges`` and
+``sharded.forest_edges``.
 """
 from __future__ import annotations
 
@@ -108,6 +111,12 @@ def span(label: str, device: Optional[torch.device] = None):
     if device is not None and device.type != "cuda":
         device = None
     return _Span(label, device)
+
+
+def recording() -> bool:
+    """Whether the recorder is on: a counter whose value needs a host read
+    of a device tensor takes that read only then."""
+    return _REC.on
 
 
 def count(label: str, n: int = 1) -> None:
